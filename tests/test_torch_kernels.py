@@ -1,0 +1,250 @@
+"""The port's kernel layer against the JAX reference, on the CPU.
+
+Each wrapper takes its plain PyTorch version for CPU tensors; these tests
+hold those versions (through the port's public wrappers and its
+``sparse_gemm`` dispatcher) against ``repro.kernels.ops`` running its Pallas
+kernels in interpret mode, on the same numpy inputs.  Bitmaps and queues
+must match exactly; f32 outputs to 1e-5, the reference's own tolerance
+(tests/test_kernels_masked_matmul.py).  The CUDA kernels themselves run only
+on a GPU (tests/test_torch_cuda.py and chip_smoke.py).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import stats as jstats
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import queue_builder as tqueue
+from repro_torch.kernels import stats as tstats
+
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _reset_both_stats():
+    jstats.reset()
+    tstats.reset()
+    yield
+    jstats.reset()
+    tstats.reset()
+
+
+# ---------------------------------------------------------------------------
+# K1 relu_encode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gran", [(1, 8), (8, 16)])
+@pytest.mark.parametrize("shape", [(37, 29), (64, 48)])
+def test_relu_encode_matches_reference(gran, shape):
+    z = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    jy, jbits = jops.relu_encode(jnp.asarray(z), block=gran)
+    ty, tbits = tops.relu_encode(torch.tensor(z), block=gran)
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(tbits.numpy(), np.asarray(jbits))
+    assert tstats.counts() == jstats.counts() == {"encode:act": 1}
+    assert launch_counts()["relu_encode"] == 0     # CPU: plain version
+
+
+# ---------------------------------------------------------------------------
+# K2 queue builders
+# ---------------------------------------------------------------------------
+
+_rng = np.random.default_rng(1)
+BITMAPS = {
+    "random": (_rng.random((5, 7)) < 0.5).astype(np.int32),
+    "all_zero": np.zeros((4, 4), np.int32),
+    "all_one": np.ones((4, 4), np.int32),
+    "ragged": np.asarray([[0, 1, 1], [1, 0, 0], [0, 0, 1],
+                          [1, 1, 1], [0, 0, 0]], np.int32),
+    "long": (_rng.random((3, 700)) < 0.3).astype(np.int32),
+}
+
+
+@pytest.mark.parametrize("builder", ["prefix_sum", "argsort"])
+@pytest.mark.parametrize("cap_kind", ["above", "exact", "below"])
+@pytest.mark.parametrize("name", list(BITMAPS))
+def test_build_queue_matches_reference(name, cap_kind, builder):
+    bm = BITMAPS[name]
+    n_live = int(bm.sum())
+    cap = {"above": bm.size + 3, "exact": bm.size,
+           "below": max(n_live // 2, 1)}[cap_kind]
+    jii, jjj, jn = jops.build_queue(jnp.asarray(bm), capacity=cap,
+                                    builder=builder)
+    tii, tjj, tn = tops.build_queue(torch.tensor(bm), capacity=cap,
+                                    builder=builder)
+    np.testing.assert_array_equal(tii.numpy(), np.asarray(jii))
+    np.testing.assert_array_equal(tjj.numpy(), np.asarray(jjj))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    assert int(tn[0]) == n_live
+    assert tstats.counts() == jstats.counts() == {f"queue:{builder}": 1}
+
+
+def test_queue_plain_version_equals_argsort_reference():
+    for bm in BITMAPS.values():
+        for cap in (bm.size, max(int(bm.sum()) // 2, 1)):
+            t = torch.tensor(bm)
+            for a, b in zip(tqueue.build_queue_plain(t, cap),
+                            tqueue.build_queue_argsort(t, cap)):
+                assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K3/K4 through sparse_gemm
+# ---------------------------------------------------------------------------
+
+EPILOGUES = {"none": (), "sigma": ("sigma_prime",),
+             "sigma_emit": ("sigma_prime", "bitmap_emit")}
+# (block, groups, emit granularity): a 2-D request and a grouped one.
+BLOCKS = {"8x16x8": ((8, 16, 8), 1, (2, 4)),
+          "16x8x32": ((16, 8, 32), 2, (4, 8))}
+CASES = [("predicated", e, b, "unbounded") for e in EPILOGUES for b in BLOCKS]
+CASES += [("compact", e, b, c) for e in EPILOGUES for b in BLOCKS
+          for c in ("unbounded", "overflow")]
+
+
+def _gemm_inputs(block, g, seed=2):
+    m, k, n = 33, 40, 29
+    bm, bk, bn = block
+    ni, nk, nj = -(-m // bm), -(-k // bk), -(-n // bn)
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((g, m, k)).astype(np.float32)
+    b = rng.standard_normal((g, k, n)).astype(np.float32)
+    om = (rng.random((g, ni, nj)) < 0.5).astype(np.int32)
+    am = (rng.random((g, ni, nk)) < 0.7).astype(np.int32)
+    bmk = (rng.random((g, nk, nj)) < 0.7).astype(np.int32)
+    mult = (rng.random((g, m, n)) < 0.5).astype(np.float32)
+    if g == 1:
+        a, b, om, am, bmk, mult = (x[0] for x in (a, b, om, am, bmk, mult))
+    return a, b, om, am, bmk, mult
+
+
+@pytest.mark.parametrize("schedule,epi,blk,cap", CASES)
+def test_sparse_gemm_matches_reference(schedule, epi, blk, cap):
+    block, g, emit = BLOCKS[blk]
+    stages = EPILOGUES[epi]
+    a, b, om, am, bmk, mult = _gemm_inputs(block, g)
+    max_active = int(om.sum()) // 2 if cap == "overflow" else None
+    kw = dict(block=block, groups=g, schedule=schedule, epilogue=stages,
+              emit_gran=emit if "bitmap_emit" in stages else None,
+              max_active_blocks=max_active)
+    use_mult = "sigma_prime" in stages
+    jres = jops.sparse_gemm(
+        jnp.asarray(a), jnp.asarray(b),
+        jops.GemmMasks(*(jnp.asarray(x) for x in (om, am, bmk))),
+        jops.GemmSpec(**kw),
+        epilogue_mult=jnp.asarray(mult) if use_mult else None)
+    tres = tops.sparse_gemm(
+        torch.tensor(a), torch.tensor(b),
+        tops.GemmMasks(*(torch.tensor(x) for x in (om, am, bmk))),
+        tops.GemmSpec(**kw),
+        epilogue_mult=torch.tensor(mult) if use_mult else None)
+    if "bitmap_emit" in stages:
+        (jout, jbits), (tout, tbits) = jres, tres
+        np.testing.assert_array_equal(tbits.numpy(), np.asarray(jbits))
+    else:
+        jout, tout = jres, tres
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=TOL,
+                               atol=TOL)
+    # skipped tiles are EXACT zeros in both packages
+    np.testing.assert_array_equal(tout.numpy() == 0, np.asarray(jout) == 0)
+    assert tstats.counts() == jstats.counts()
+    if cap == "overflow":
+        assert tstats.counts().get("fallback:queue_overflow") == 1
+
+
+def test_gemm_spec_validation_matches_reference():
+    for kw in ({"schedule": "bogus"}, {"groups": 0}, {"block": (8, 8)},
+               {"epilogue": ("bitmap_emit",)},
+               {"emit_gran": (1, 1)},
+               {"epilogue": ("bitmap_emit",), "emit_gran": (3, 1)}):
+        with pytest.raises(ValueError):
+            jops.GemmSpec(**kw)
+        with pytest.raises(ValueError):
+            tops.GemmSpec(**kw)
+
+
+def test_wrappers_reject_bf16_and_bad_shapes():
+    a = torch.zeros((8, 8), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        tops.relu_encode(a, block=(1, 8))
+    with pytest.raises(NotImplementedError):
+        tops.sparse_gemm(a, a, None, tops.GemmSpec(block=(8, 8, 8)))
+    x = torch.zeros((8, 8))
+    with pytest.raises(ValueError):
+        tops.sparse_gemm(x, x, tops.GemmMasks(out=torch.ones(3, 3)),
+                         tops.GemmSpec(block=(8, 8, 8)))
+
+
+# ---------------------------------------------------------------------------
+# stats readers, oracles and shape helpers
+# ---------------------------------------------------------------------------
+
+def test_stats_readers_match_reference():
+    keys = ["encode:act", "queue:prefix_sum", "queue:argsort",
+            "gemm:compact:1", "gemm:compact:1", "gemm:predicated:2",
+            "mm:compact", "gmm:predicated:2", "emit:grad", "scan:grad"]
+    for key in keys:
+        jstats.record(key)
+        tstats.record(key)
+    assert tstats.counts() == jstats.counts()
+    for what in ("", "act", "grad", "1"):
+        assert tstats.total(what) == jstats.total(what)
+    for builder in ("", "prefix_sum", "argsort"):
+        assert tstats.queue_builds(builder) == jstats.queue_builds(builder)
+    for schedule in ("", "compact", "predicated", "dense"):
+        for groups in (None, 1, 2):
+            assert tstats.gemm_launches(schedule, groups) == \
+                jstats.gemm_launches(schedule, groups)
+
+
+def test_oracles_and_pad_helpers_match_reference():
+    from repro.kernels import ref as jref
+    from repro.kernels import shapes as jshapes
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import shapes as tshapes
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((37, 29)).astype(np.float32)
+    x *= rng.random(x.shape) > 0.6
+    for b0, b1 in ((8, 16), (1, 8), (37, 29)):
+        np.testing.assert_array_equal(
+            tshapes.block_bitmap(torch.tensor(x), b0, b1).numpy(),
+            np.asarray(jshapes.block_bitmap(jnp.asarray(x), b0, b1)))
+    m = (rng.random((3, 5)) < 0.5).astype(np.int32)
+    np.testing.assert_array_equal(
+        tshapes.pad_mask(torch.tensor(m), 4, 7).numpy(),
+        np.asarray(jshapes.pad_mask(jnp.asarray(m), 4, 7)))
+    np.testing.assert_array_equal(
+        tshapes.pad_mask3(None, 2, 3, 4).numpy(),
+        np.asarray(jshapes.pad_mask3(None, 2, 3, 4)))
+    assert tshapes.grid_shape((33, 40, 29), (8, 16, 8)) == \
+        jshapes.grid_shape((33, 40, 29), (8, 16, 8))
+    a = rng.standard_normal((32, 48)).astype(np.float32)
+    b = rng.standard_normal((48, 24)).astype(np.float32)
+    om = (rng.random((4, 3)) < 0.5).astype(np.int32)
+    am = (rng.random((4, 3)) < 0.5).astype(np.int32)
+    bmk = (rng.random((3, 3)) < 0.5).astype(np.int32)
+    mult = (rng.random((32, 24)) < 0.5).astype(np.float32)
+    kw = dict(bm=8, bk=16, bn=8)
+    got = tref.masked_matmul(*(torch.tensor(v) for v in (a, b, om, am, bmk)),
+                             epilogue_mult=torch.tensor(mult), **kw)
+    want = jref.masked_matmul(*(jnp.asarray(v) for v in (a, b, om, am, bmk)),
+                              epilogue_mult=jnp.asarray(mult), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    dy = rng.standard_normal((32, 48)).astype(np.float32)
+    got = tref.relu_bwd_masked(torch.tensor(dy), torch.tensor(b),
+                               torch.tensor(mult), **kw)
+    want = jref.relu_bwd_masked(jnp.asarray(dy), jnp.asarray(b),
+                                jnp.asarray(mult), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    ty, tb = tref.relu_encode(torch.tensor(x[:32, :16]), bm=8, bn=8)
+    jy, jb = jref.relu_encode(jnp.asarray(x[:32, :16]), bm=8, bn=8)
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
