@@ -7,15 +7,22 @@ Phases (any failure makes the exit code nonzero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels under src/repro_torch/csrc, built with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the VGG16 training step gives it, with its time, its plain
+     the shapes the VGG16 and MobileNet training steps give it (K6 and K7,
+     on no training path, at VGG16 conv4's dX shape, where they must also
+     equal sparse_gemm at G = 1 bit for bit), with its time, its plain
      version's time, a one-call PyTorch yardstick and its lower bound;
-  4. end to end at full width (VGG16, 224x224, width 1.0, 1000 classes,
+  4. VGG16 end to end at full width (224x224, width 1.0, 1000 classes,
      batch 8): three IN_OUT_WR SGD steps and one IN_OUT step through
      ``repro_torch.cnn_training.train_steps``, with the launch counters
      reset just before and read just after; each step's ReLU live fraction
      per layer; the first step's loss and gradients against the same step
      on the dense ``xla_ref`` schedule, with the ReLU sign flips between the
-     two forwards counted and bounded; the per-step count contract.
+     two forwards counted and bounded; the per-step count contract;
+  5. MobileNet end to end at full width (same geometry), the same checks,
+     with ``scan_signed_inputs=True`` (the bitmap_scan kernel on the signed
+     image and head input) and its 13 depthwise convs on the grouped GEMMs;
+     its BN gradients against a float64 step, and that rule itself against
+     faults planted in a retaken first step (CONTROLS).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, it exits nonzero and prints no result.
@@ -44,9 +51,33 @@ KERNEL_RTOL = 1e-4             # max|kernel - plain| <= KERNEL_RTOL * max|plain|
 # KERNEL_RTOL.
 FLIP_SHARE = 1e-6
 STEP_RTOL_FLIPPED = 5e-3
+# Under BatchNorm one flip moves its channel's Σdy and Σdy·x̂ by ~1/N
+# (N = 392 samples at 7x7) and BN's backward spreads that over the channel
+# and every layer below: the dense f32 step is itself up to 2.8e-2·max|g|
+# off the float64 step at full width.  So in a BN net the leaves at or
+# below the highest flip are held, in relative L2 norm, to the float64 step
+# (plain PyTorch, cuDNN in f64): no farther than F64_RATIO times the dense
+# f32 step is, or KERNEL_RTOL.  The largest clean reading is 1.95; the
+# smallest reading with a planted fault (one live tile of dw7's dX zeroed,
+# below) is 3.34 at pw6/bn_bias: 2.5 sits between them.
+F64_RATIO = 2.5
+# The float64 rule is itself checked on every run: the first step is taken
+# again with a fault planted in the port's GEMM dispatch, and each fault
+# must fail the rule on some leaf ("none" plants nothing and must pass):
+# every GEMM operand rounded to bf16; CONTROL_LAYER's dX GEMM without its
+# σ′ epilogue; that GEMM with one live output tile zeroed.
+CONTROLS = ("none", "bf16_operands", "sigma_prime_dropped",
+            "live_tile_skipped")
+CONTROL_LAYER = "dw7"
 # SGD losses may wander with the batch but not blow up: each step's loss
 # stays within LOSS_GROWTH times the first.
 LOSS_GROWTH = 2.0
+
+# The BN scale and bias of the MobileNet phase are drawn off the init's
+# (1, 0): there ReLU's positive homogeneity gives a BN scale that feeds
+# ReLU -> depthwise conv -> BN (conv0, pw1-pw12) an exactly zero gradient,
+# whose f32 value is rounding noise that no relative bound can hold.
+BN_SCALE_SD, BN_BIAS_SD = 0.2, 0.5
 
 FAILURES = []
 
@@ -130,7 +161,9 @@ def gemm_traffic(shape, block, out_mask, a_mask, b_mask, mult, bits):
 
 def kernel_phase(dev):
     import torch
+    from repro_torch.kernels import bitmap_scan as k5
     from repro_torch.kernels import masked_matmul as mm
+    from repro_torch.kernels import ops
     from repro_torch.kernels import queue_builder as qb
     from repro_torch.kernels import relu_encode as re_
     from repro_torch.kernels import shapes
@@ -188,11 +221,14 @@ def kernel_phase(dev):
                    4.0 * bm.numel() + 8.0 * cap + 4.0, 0.0)
 
     def gemm_case(g, m, k, n, block, live=0.5, sigma=True, a_t=False,
-                  b_mask=True, out_mask=True):
+                  b_mask=True, out_mask=True, a_grouped=False):
         ni, nk, nj = shapes.grid_shape((m, k, n), block)
         if a_t:   # WG: A = patches^T, a strided view of (K, M) patches
             a = torch.randn(g, k, m, device=dev, generator=gen) \
                 .transpose(1, 2)
+        elif a_grouped:   # grouped dX: group g's columns of (M, K*G) patches
+            a = torch.randn(m, k * g, device=dev, generator=gen) \
+                .reshape(m, k, g, 1).permute(2, 0, 1, 3).reshape(g, m, k)
         else:
             a = torch.randn(g, m, k, device=dev, generator=gen)
         b = torch.randn(g, k, n, device=dev, generator=gen)
@@ -281,11 +317,77 @@ def kernel_phase(dev):
              out_mask=False)
     run_gemm("", "ragged 2x333x250x77 block 8x16x8", 2, 333, 250, 77,
              (8, 16, 8), (2, 4))
+    # Grouped: MobileNet dw1's dX GEMM, 32 groups of (100,352 x 9) @ (9 x 1)
+    # on degenerate (128, 9, 1) tiles, A a strided per-group view.
+    run_gemm("", "dw1 dX 32x(100352x9x1) block 128x9x1", 32, 100352, 9, 1,
+             (128, 9, 1), (1, 1), b_mask=False, a_grouped=True)
+
+    # K5 bitmap_scan: conv0's input (the image, gran (1, 1)), the head's
+    # input (gran (128, 128)) and a ragged signed case; bits exact.  The
+    # x.ne(0) yardstick computes the same function only at gran (1, 1).
+    for case, (m, n, gran, density) in (
+            ("conv0 input 401408x3 gran 1x1", (401408, 3, (1, 1), 1.0)),
+            ("head input 8x1024 gran 128x128", (8, 1024, (128, 128), 1.0)),
+            ("ragged 333x29 gran 8x8", (333, 29, (8, 8), 0.02))):
+        x = torch.randn(m, n, device=dev, generator=gen)
+        x *= torch.rand(m, n, device=dev, generator=gen) < density
+        bits = k5.bitmap_scan(x, gran)
+        want = k5.bitmap_scan_plain(x, gran)
+        ok = torch.equal(bits, want)
+        library = time_ms(lambda: x.ne(0)) if gran == (1, 1) else None
+        report("bitmap_scan", case, 0.0 if ok else 1.0, ok,
+               time_ms(lambda: k5.bitmap_scan(x, gran)),
+               time_ms(lambda: k5.bitmap_scan_plain(x, gran)), library,
+               4.0 * m * n + 4.0 * bits.numel(), 0.0)
+
+    # K6/K7, the 2-D launches, at VGG16 conv4's dX shape (block-aligned):
+    # each against its plain version; K7 scattered bit-equal to K6, and K6
+    # bit-equal to sparse_gemm at G = 1 (the role the reference gives them).
+    m, k, n, block = 100352, 1152, 128, (128, 128, 128)
+    bm, bk, bn = block
+    a, b, om, am, _, mult = gemm_case(1, m, k, n, block, b_mask=False)
+    a, b, om, am, mult = a[0], b[0], om[0], am[0], mult[0]
+    bmk = torch.ones(k // bk, n // bn, dtype=torch.int32, device=dev)
+    kw = dict(bm=bm, bk=bk, bn=bn, epilogue_mult=mult)
+    flops, bytes_ = gemm_traffic((1, m, k, n), block, om[None], am[None],
+                                 bmk[None], mult, None)
+    lib_ms = time_ms(lambda: torch.matmul(a, b))
+    k6 = mm.masked_matmul_kernel(a, b, om, am, bmk, **kw)
+    want = mm.masked_matmul_plain(a, b, om, am, bmk, **kw)
+    torch.cuda.synchronize()
+    err, rel, ok = rel_err(k6, want)
+    report("masked_matmul_2d", "conv4 dX 100352x1152x128", err, ok,
+           time_ms(lambda: mm.masked_matmul_kernel(a, b, om, am, bmk, **kw)),
+           time_ms(lambda: mm.masked_matmul_plain(a, b, om, am, bmk, **kw)),
+           lib_ms, bytes_, flops, rel)
+    ii, jj, n_live = qb.build_queue_kernel(om, capacity=om.numel())
+    k7 = mm.compact_masked_matmul_kernel(a, b, ii, jj, n_live, am, bmk, **kw)
+    want7 = mm.compact_masked_matmul_plain(a, b, ii, jj, n_live, am, bmk,
+                                           **kw)
+    torch.cuda.synchronize()
+    err, rel, ok = rel_err(k7, want7)
+    report("compact_masked_matmul_2d", "conv4 dX 100352x1152x128", err, ok,
+           time_ms(lambda: mm.compact_masked_matmul_kernel(
+               a, b, ii, jj, n_live, am, bmk, **kw)),
+           time_ms(lambda: mm.compact_masked_matmul_plain(
+               a, b, ii, jj, n_live, am, bmk, **kw)),
+           lib_ms, bytes_, flops, rel)
+    nl = int(n_live[0])
+    scattered = torch.zeros_like(k6)
+    scattered.view(m // bm, bm, n // bn, bn)[
+        ii[:nl].long(), :, jj[:nl].long(), :] = k7[:nl]
+    check(torch.equal(scattered, k6), "K7 scattered is bit-equal to K6")
+    for schedule in ("compact", "predicated"):
+        spec = ops.GemmSpec(block=block, schedule=schedule,
+                            epilogue=("sigma_prime",))
+        got = ops.sparse_gemm(a, b, (om, am, bmk), spec, epilogue_mult=mult)
+        check(torch.equal(got, k6),
+              f"K6 is bit-equal to sparse_gemm(G=1, {schedule})")
     return rows
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: end to end
+# Phases 4 and 5: end to end
 # ---------------------------------------------------------------------------
 
 def clone_params(params):
@@ -294,31 +396,202 @@ def clone_params(params):
             for layer, leaves in params.items()}
 
 
-def step_contract(rec, scenario, tag):
+def perturb_batchnorm(params, seed):
+    """BN scale += BN_SCALE_SD * N(0, 1), bias += BN_BIAS_SD * N(0, 1),
+    drawn on the CPU from ``seed`` (see BN_SCALE_SD)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for leaves in params.values():
+            for name, sd in (("bn_scale", BN_SCALE_SD),
+                             ("bn_bias", BN_BIAS_SD)):
+                if name in leaves:
+                    noise = torch.randn(leaves[name].shape, generator=gen)
+                    leaves[name].add_(sd * noise.to(leaves[name].device))
+    return params
+
+
+def dense_f64_step(model, params, img, labels):
+    """The same step in plain float64 PyTorch (cuDNN convolutions, its own
+    padding and BatchNorm: no code of the port's model or engine): returns
+    the loss, the gradients keyed like ``param_leaves`` and the post-ReLU
+    activation of each conv layer.  Chains of conv nodes only (MobileNet)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.cnn import ConvNode, param_leaves
+
+    def same_pad(h, r, stride, padding):      # JAX's SAME/VALID, (lo, hi)
+        if padding == "VALID":
+            return 0, 0
+        total = max((-(-h // stride) - 1) * stride + r - h, 0)
+        return total // 2, total - total // 2
+
+    p64 = {layer: {k: v.detach().double().requires_grad_(True)
+                   for k, v in leaves.items()}
+           for layer, leaves in params.items()}
+    x, pending, caps = img.double(), False, {}
+    for node in model.layers:
+        if not isinstance(node, ConvNode):
+            raise ValueError(f"dense_f64_step takes conv chains; got {node}")
+        if pending:
+            x = torch.relu(x)
+        p = p64[node.name]
+        _, h, w, c = x.shape
+        r = p["w"].shape[0]
+        hlo, hhi = same_pad(h, r, node.stride, node.padding)
+        wlo, whi = same_pad(w, r, node.stride, node.padding)
+        xp = F.pad(x, (0, 0, wlo, whi, hlo, hhi)).permute(0, 3, 1, 2)
+        x = F.conv2d(xp, p["w"].permute(3, 2, 0, 1), stride=node.stride,
+                     groups=c if node.depthwise else 1).permute(0, 2, 3, 1)
+        if node.has_bn:                       # batch statistics over N, H, W
+            mu = x.mean(dim=(0, 1, 2), keepdim=True)
+            var = ((x - mu) ** 2).mean(dim=(0, 1, 2), keepdim=True)
+            x = (x - mu) / torch.sqrt(var + 1e-5) * p["bn_scale"] \
+                + p["bn_bias"]
+        pending = node.relu_after
+        caps[node.name] = torch.relu(x) if pending else x
+    if pending:
+        x = torch.relu(x)
+    logp = torch.log_softmax(x.mean(dim=(1, 2)) @ p64["head"]["w"], dim=-1)
+    loss = -logp.gather(1, labels.long()[:, None]).mean()
+    leaves = param_leaves(p64)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, grads)), caps
+
+
+def grad_verdicts(net, grads, grads_x, g64, order, top):
+    """Each leaf of a step's gradients against the dense xla_ref step and,
+    in a BN net (``g64`` given), the float64 step: ``(name, f64_rule, ok,
+    message)``.  Leaves at or below the highest flipped layer (index
+    ``top`` in ``order``) take the float64 rule in a BN net and
+    STEP_RTOL_FLIPPED otherwise; those above take KERNEL_RTOL."""
+    out = []
+    for name, gx in grads_x.items():
+        gp = grads[name]
+        err = float((gp - gx).abs().max()) / max(float(gx.abs().max()),
+                                                 1e-30)
+        layer = name.split("/")[0]
+        below = layer in order and order.index(layer) <= top
+        if below and g64 is not None:
+            gt = g64[name]
+            l2 = {k: float((g.double() - gt).norm() / gt.norm())
+                  for k, g in (("pallas", gp), ("xla_ref", gx))}
+            rtol = max(KERNEL_RTOL, F64_RATIO * l2["xla_ref"])
+            out.append((name, True, l2["pallas"] <= rtol,
+                        f"{net} grad {name}: |g - g64|/|g64| = "
+                        f"{l2['pallas']:.3e} <= max({KERNEL_RTOL:g}, "
+                        f"{F64_RATIO:g} x xla_ref's {l2['xla_ref']:.3e}) "
+                        f"(max|diff|/max|g| against xla_ref {err:.3e})"))
+            continue
+        rtol = STEP_RTOL_FLIPPED if below else KERNEL_RTOL
+        out.append((name, False, err <= rtol,
+                    f"{net} grad {name}: max|diff|/max|g| = {err:.3e} <= "
+                    f"{rtol:g} ({'at or below' if below else 'above'} the "
+                    f"highest flip)"))
+    return out
+
+
+def control_grads(kind, model, params, img, labels, policy):
+    """The first step's gradients with a planted fault (see CONTROLS)."""
+    import torch
+    from repro_torch.core import sparse_conv, sparse_linear
+    from repro_torch.kernels import stats
+    from repro_torch.models.cnn import param_leaves
+
+    real = sparse_linear._mm
+
+    def bf16(t):
+        return t.to(torch.bfloat16).to(t.dtype)
+
+    def planted(a, b, *args, epilogue=None, **kw):
+        if kind == "bf16_operands":
+            return real(bf16(a), bf16(b), *args, epilogue=epilogue, **kw)
+        # The fused dX GEMM of CONTROL_LAYER: the only grouped _mm call
+        # with a σ′ epilogue in that layer's backward.
+        if epilogue is None or stats.current_layer() != CONTROL_LAYER \
+                or kind == "none":
+            return real(a, b, *args, epilogue=epilogue, **kw)
+        if kind == "sigma_prime_dropped":
+            return real(a, b, *args, **kw)
+        res = real(a, b, *args, epilogue=epilogue, **kw)
+        out = res[0] if isinstance(res, tuple) else res
+        bm, _, bn = kw["spec"].block          # live_tile_skipped
+        live = out[:, :bm, :bn].flatten(1).ne(0).any(dim=1).nonzero()
+        out[int(live[0]), :bm, :bn] = 0
+        return res
+
+    leaves = param_leaves(params)
+    sparse_linear._mm = sparse_conv._mm = planted
+    try:
+        loss = model.loss(params, img, labels, policy)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    finally:
+        sparse_linear._mm = sparse_conv._mm = real
+    return dict(zip(leaves, grads))
+
+
+def _sum(c, prefix):
+    return sum(v for k, v in c.items() if k.startswith(prefix))
+
+
+def launch_contract(rec, scenario, tag):
+    """Every launch counter equals its dispatches; the schedule ran."""
     c, launches = rec["counts"], rec["launches"]
     check(math.isfinite(rec["loss"]), f"{tag}: loss {rec['loss']} finite")
-    check(c.get("encode:act") == 8, f"{tag}: encode:act == 8 ({c})")
     check(c.get("emit:grad", 0) >= 1, f"{tag}: emit:grad >= 1")
-    check(c.get("registry:hit") == 8, f"{tag}: registry:hit == 8")
-    check(not any(k.startswith("scan") for k in c), f"{tag}: no scan:*")
     check(launches.get("relu_encode", 0) == c.get("encode:act", 0),
           f"{tag}: relu_encode launches == encode:act ({launches})")
+    check(launches.get("bitmap_scan", 0) == _sum(c, "scan_pallas:"),
+          f"{tag}: bitmap_scan launches == scan_pallas:*")
     check(launches.get("queue_builder", 0) == c.get("queue:prefix_sum", 0),
           f"{tag}: queue_builder launches == queue:prefix_sum")
-    check(launches.get("compact_gemm", 0) == c.get("gemm:compact:1", 0),
-          f"{tag}: compact_gemm launches == gemm:compact:1")
-    check(launches.get("predicated_gemm", 0)
-          == c.get("gemm:predicated:1", 0),
-          f"{tag}: predicated_gemm launches == gemm:predicated:1")
+    check(launches.get("compact_gemm", 0) == _sum(c, "gemm:compact:"),
+          f"{tag}: compact_gemm launches == gemm:compact:*")
+    check(launches.get("predicated_gemm", 0) == _sum(c, "gemm:predicated:"),
+          f"{tag}: predicated_gemm launches == gemm:predicated:*")
     if scenario == "IN_OUT_WR":
-        check(c.get("queue:prefix_sum", 0) == c.get("gemm:compact:1", -1)
-              > 0, f"{tag}: queue:prefix_sum == gemm:compact:1")
+        check(c.get("queue:prefix_sum", 0) == _sum(c, "gemm:compact:") > 0,
+              f"{tag}: queue:prefix_sum == gemm:compact:*")
     else:
-        check(c.get("gemm:predicated:1", 0) > 0,
+        check(_sum(c, "gemm:predicated:") > 0,
               f"{tag}: predicated GEMMs dispatched")
 
 
-def end_to_end(dev, image_size=224, width=1.0, num_classes=1000, batch=8):
+def vgg16_contract(rec, scenario, tag):
+    c = rec["counts"]
+    launch_contract(rec, scenario, tag)
+    check(c.get("encode:act") == 8, f"{tag}: encode:act == 8 ({c})")
+    check(c.get("registry:hit") == 8, f"{tag}: registry:hit == 8")
+    check(not any(k.startswith("scan") for k in c), f"{tag}: no scan:*")
+    check(_sum(c, "gemm:") == c.get(f"gemm:{SCHEDULE[scenario]}:1"),
+          f"{tag}: every GEMM at G = 1")
+
+
+def mobilenet_contract(rec, scenario, tag):
+    c = rec["counts"]
+    launch_contract(rec, scenario, tag)
+    check(c.get("encode:act") == 26, f"{tag}: encode:act == 26 ({c})")
+    check(c.get("scan_pallas:act") == 2, f"{tag}: scan_pallas:act == 2")
+    check(_sum(c, "gemm:") == 84, f"{tag}: 84 GEMM dispatches")
+    grouped = _sum(c, "gemm:") - c.get(f"gemm:{SCHEDULE[scenario]}:1", 0)
+    check(grouped == 39, f"{tag}: 39 grouped GEMMs (13 depthwise x 3)")
+    check(c.get("conv:dense_fallback", 0) == 0,
+          f"{tag}: conv:dense_fallback == 0")
+
+
+SCHEDULE = {"IN_OUT_WR": "compact", "IN_OUT": "predicated"}
+# Each path's kernels: the main-path run must launch every one of them.
+PATHS = {"vgg16": (vgg16_contract, False, None,
+                   ("relu_encode", "queue_builder", "compact_gemm",
+                    "predicated_gemm")),
+         "mobilenet": (mobilenet_contract, True, 1,
+                       ("relu_encode", "queue_builder", "compact_gemm",
+                        "predicated_gemm", "bitmap_scan"))}
+
+
+def end_to_end(dev, net, image_size=224, width=1.0, num_classes=1000,
+               batch=8):
+    """Drive one path at full width; returns its launch counts."""
     import torch
     from repro_torch import kernels
     from repro_torch.cnn_training import train_steps
@@ -326,16 +599,18 @@ def end_to_end(dev, image_size=224, width=1.0, num_classes=1000, batch=8):
     from repro_torch.data.pipeline import image_batch
     from repro_torch.models.cnn import build_cnn, param_leaves
 
-    geom = dict(net="vgg16", image_size=image_size, width=width,
-                num_classes=num_classes, batch=batch, device=dev)
-    model = build_cnn("vgg16", image_size=image_size, width=width,
+    contract, scan, bn_seed, path_kernels = PATHS[net]
+    geom = dict(net=net, image_size=image_size, width=width,
+                num_classes=num_classes, batch=batch, device=dev,
+                scan_signed_inputs=scan)
+    model = build_cnn(net, image_size=image_size, width=width,
                       num_classes=num_classes)
     params = model.init(0, device=dev)
+    if bn_seed is not None:
+        perturb_batchnorm(params, bn_seed)
     init = clone_params(params)
     io_params = clone_params(params)
-    cuda = dev.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
 
     # The main path: every launch counter is 0 just before, read just after.
     kernels.reset_launch_counts()
@@ -347,28 +622,31 @@ def end_to_end(dev, image_size=224, width=1.0, num_classes=1000, batch=8):
                      params=io_params, **geom)
     main_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else 0.0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
     for i, rec in enumerate(wr["steps"]):
-        print(f"IN_OUT_WR step {i}: loss {rec['loss']:.6f} "
-              f"{rec['seconds'] * 1e3:.1f} ms counts {rec['counts']} "
-              f"launches {rec['launches']}", flush=True)
-        print(f"IN_OUT_WR step {i} ReLU live fraction: " + json.dumps(
+        tag = f"{net} IN_OUT_WR step {i}"
+        print(f"{tag}: loss {rec['loss']:.6f} {rec['seconds'] * 1e3:.1f} ms "
+              f"counts {rec['counts']} launches {rec['launches']}",
+              flush=True)
+        print(f"{tag} ReLU live fraction: " + json.dumps(
             {k: round(v, 4) for k, v in rec["relu_live"].items()}),
               flush=True)
-        step_contract(rec, "IN_OUT_WR", f"IN_OUT_WR step {i}")
+        contract(rec, "IN_OUT_WR", tag)
         loss0 = wr["steps"][0]["loss"]
         check(rec["loss"] <= LOSS_GROWTH * loss0,
-              f"IN_OUT_WR step {i}: loss {rec['loss']:.4f} <= "
-              f"{LOSS_GROWTH} x step 0's {loss0:.4f}")
+              f"{tag}: loss {rec['loss']:.4f} <= {LOSS_GROWTH} x step 0's "
+              f"{loss0:.4f}")
     rec = io["steps"][0]
-    print(f"IN_OUT step 0: loss {rec['loss']:.6f} {rec['seconds'] * 1e3:.1f} "
-          f"ms counts {rec['counts']} launches {rec['launches']}", flush=True)
-    step_contract(rec, "IN_OUT", "IN_OUT step 0")
-    for name, n in launches.items():
-        check(n > 0, f"main path launched {name} ({n} times)")
+    print(f"{net} IN_OUT step 0: loss {rec['loss']:.6f} "
+          f"{rec['seconds'] * 1e3:.1f} ms counts {rec['counts']} "
+          f"launches {rec['launches']}", flush=True)
+    contract(rec, "IN_OUT", f"{net} IN_OUT step 0")
+    for name in path_kernels:
+        check(launches[name] > 0,
+              f"{net} main path launched {name} ({launches[name]} times)")
     step_ms = statistics.median(r["seconds"] * 1e3 for r in wr["steps"][1:])
-    print(f"IN_OUT_WR median step ms (steps 2-3): {step_ms:.1f}; "
+    print(f"{net} IN_OUT_WR median step ms (steps 2-3): {step_ms:.1f}; "
           f"main path {main_s:.1f} s; peak memory {peak_gb:.2f} GiB",
           flush=True)
 
@@ -376,49 +654,70 @@ def end_to_end(dev, image_size=224, width=1.0, num_classes=1000, batch=8):
     img, labels = image_batch(0, 0, batch=batch, image_size=image_size,
                               num_classes=num_classes, device=dev)
     leaves = param_leaves(init)
+    torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     loss_x = model.loss(init, img, labels, IN_OUT_WR.with_(
         kernel_impl="xla_ref"))
     grads_x = torch.autograd.grad(loss_x, list(leaves.values()))
-    if cuda:
-        torch.cuda.synchronize(dev)
-    print(f"xla_ref step: {(time.perf_counter() - t0) * 1e3:.1f} ms",
+    torch.cuda.synchronize(dev)
+    print(f"{net} xla_ref step: {(time.perf_counter() - t0) * 1e3:.1f} ms",
           flush=True)
     loss_p = wr["steps"][0]["loss"]
     loss_x = float(loss_x.detach())
     check(abs(loss_p - loss_x) <= 1e-5 * abs(loss_x),
-          f"step 1 loss {loss_p:.7f} vs xla_ref {loss_x:.7f}")
+          f"{net} step 1 loss {loss_p:.7f} vs xla_ref {loss_x:.7f}")
     # σ′ flips: activations positive in one forward and not in the other.
     caps = {}
     with torch.no_grad():
         for impl in ("pallas", "xla_ref"):
             caps[impl] = {}
-            model.apply(init, img, IN_OUT_WR.with_(kernel_impl=impl),
-                        capture=caps[impl])
+            model.apply(init, img, IN_OUT_WR.with_(
+                kernel_impl=impl, scan_signed_inputs=scan),
+                capture=caps[impl])
     flips = {k: int(((v > 0) != (caps["xla_ref"][k] > 0)).sum())
              for k, v in caps["pallas"].items()}
     n_act = sum(v.numel() for v in caps["pallas"].values())
     n_flip = sum(flips.values())
-    print(f"ReLU sign flips pallas vs xla_ref: {n_flip} of {n_act} "
+    print(f"{net} ReLU sign flips pallas vs xla_ref: {n_flip} of {n_act} "
           f"activations {flips}", flush=True)
     check(n_flip <= FLIP_SHARE * n_act,
-          f"sign flips {n_flip} <= {FLIP_SHARE} x {n_act} activations")
+          f"{net} sign flips {n_flip} <= {FLIP_SHARE} x {n_act} activations")
     order = list(caps["pallas"])
     flipped = [order.index(k) for k, n in flips.items() if n]
     top = max(flipped) if flipped else -1
-    print("highest flipped layer: "
+    print(f"{net} highest flipped layer: "
           + (order[top] if flipped else "none"), flush=True)
-    for name, gx in zip(leaves, grads_x):
-        gp = wr["first_grads"][name]
-        err = float((gp - gx).abs().max()) / max(float(gx.abs().max()),
-                                                 1e-30)
-        layer = name.split("/")[0]
-        below = layer in order and order.index(layer) <= top
-        rtol = STEP_RTOL_FLIPPED if below else KERNEL_RTOL
-        check(err <= rtol, f"grad {name}: max|diff|/max|g| = {err:.3e} "
-              f"<= {rtol:g} ({'at or below' if below else 'above'} "
-              f"the highest flip)")
-    return launches, step_ms
+    g64 = None
+    if bn_seed is not None:
+        # BN nets: the leaves at or below the highest flip are held to the
+        # float64 step (see F64_RATIO), not to the other f32 step.
+        loss64, g64, caps64 = dense_f64_step(model, init, img, labels)
+        f64 = {impl: sum(int(((v > 0) != (caps64[k] > 0)).sum())
+                         for k, v in caps[impl].items()) for impl in caps}
+        print(f"{net} float64 step loss {loss64:.9f}; sign flips against "
+              f"float64 {f64}", flush=True)
+    grads_x = dict(zip(leaves, grads_x))
+    for _, _, ok, what in grad_verdicts(net, wr["first_grads"], grads_x,
+                                        g64, order, top):
+        check(ok, what)
+    if g64 is not None:
+        # The float64 rule must see a fault: each planted one is rejected
+        # by it, and the same harness with nothing planted is not.
+        pol = IN_OUT_WR.with_(kernel_impl="pallas", scan_signed_inputs=scan)
+        for kind in CONTROLS:
+            v = [(ok, what) for _, f64_rule, ok, what in grad_verdicts(
+                net, control_grads(kind, model, init, img, labels, pol),
+                grads_x, g64, order, top) if f64_rule]
+            bad = [what for ok, what in v if not ok]
+            print(f"{net} control {kind}: the float64 rule fails {len(bad)} "
+                  f"of {len(v)} leaves", flush=True)
+            for what in bad[:6]:
+                print("    " + what, flush=True)
+            check(bool(bad) == (kind != "none"),
+                  f"{net} control {kind}: "
+                  + ("passes the float64 rule" if kind == "none"
+                     else "rejected by the float64 rule"))
+    return launches
 
 
 def main():
@@ -458,21 +757,28 @@ def main():
             print("  " + line.strip())
 
     rows = kernel_phase(dev)
-    launches, _ = end_to_end(dev)
+    by_path = {net: end_to_end(dev, net) for net in PATHS}
 
+    mm_cu = "src/repro_torch/csrc/masked_matmul.cu"
+    mm_py = "src/repro/kernels/masked_matmul.py"
     sources = {"relu_encode": ("src/repro_torch/csrc/relu_encode.cu",
                                "src/repro/kernels/relu_encode.py:63"),
                "queue_builder": ("src/repro_torch/csrc/queue_builder.cu",
                                  "src/repro/kernels/queue_builder.py:122"),
-               "compact_gemm": ("src/repro_torch/csrc/masked_matmul.cu",
-                                "src/repro/kernels/masked_matmul.py:492"),
-               "predicated_gemm": ("src/repro_torch/csrc/masked_matmul.cu",
-                                   "src/repro/kernels/masked_matmul.py:347")}
+               "compact_gemm": (mm_cu, f"{mm_py}:492"),
+               "predicated_gemm": (mm_cu, f"{mm_py}:347"),
+               "bitmap_scan": ("src/repro_torch/csrc/bitmap_scan.cu",
+                               "src/repro/kernels/bitmap_scan.py:61"),
+               "masked_matmul_2d": (mm_cu, f"{mm_py}:172"),
+               "compact_masked_matmul_2d": (mm_cu, f"{mm_py}:626")}
     out = []
     for name, (source, replaces) in sources.items():
         r = rows[name]
+        per_path = {net: launches[name] for net, launches in by_path.items()}
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces,
+                    "launches": sum(per_path.values()),
+                    "launches_by_path": per_path,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],

@@ -6,6 +6,8 @@ Run:
       --image-size 224 --width 1.0 --num-classes 1000 --batch 8 \\
       --kernel-impl pallas [--policy IN_OUT_WR|IN_OUT] [--lr 0.01] \\
       [--device cuda]
+  PYTHONPATH=src python -m repro_torch.cnn_training --net mobilenet \\
+      --scan-signed-inputs
 
 ``train_steps`` is the library entry point; it runs on CUDA unless the
 caller passes ``device="cpu"``.
@@ -50,6 +52,7 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
                 width: float = 1.0, num_classes: int = 1000, batch: int = 8,
                 policy: str = "IN_OUT_WR", kernel_impl: str = "pallas",
                 builder: str = "prefix_sum", lr: float = 0.01,
+                scan_signed_inputs: bool = False,
                 seed: int = 0, device="cuda", params: Optional[dict] = None,
                 keep_first_grads: bool = False,
                 relu_live: bool = False) -> dict:
@@ -57,8 +60,9 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
     at each) and return ``{"model", "params", "steps", "first_grads"}``.
 
     ``builder`` is the compact-queue builder (``"prefix_sum"`` or
-    ``"argsort"``).  ``params`` (updated in place) defaults to
-    ``model.init(seed)``.  Each entry of ``steps`` holds the step's
+    ``"argsort"``); ``scan_signed_inputs`` sets the policy field of that
+    name (a ``bitmap_scan`` of the signed image and head input).
+    ``params`` (updated in place) defaults to ``model.init(seed)``.  Each entry of ``steps`` holds the step's
     ``loss``, wall ``seconds`` (ended by a device synchronize), and the
     ``counts``/``launches`` it added to ``kernels.stats`` and the kernel
     launch counters.  With ``keep_first_grads`` the first step's gradients
@@ -74,7 +78,8 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
     if params is None:
         params = model.init(seed, device=dev)
     pol = SCENARIOS[policy].with_(kernel_impl=kernel_impl,
-                                  queue_builder=builder)
+                                  queue_builder=builder,
+                                  scan_signed_inputs=scan_signed_inputs)
     leaves = param_leaves(params)
     records = []
     first_grads = None
@@ -121,6 +126,9 @@ def main(argv=None) -> None:
     ap.add_argument("--queue-builder", default="prefix_sum",
                     choices=["prefix_sum", "argsort"])
     ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--scan-signed-inputs", action="store_true",
+                    help="scan the signed image and head input for a "
+                         "bitmap (SparsityPolicy.scan_signed_inputs)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     print(f"training {args.net} under {args.policy} "
@@ -130,6 +138,7 @@ def main(argv=None) -> None:
                       num_classes=args.num_classes, batch=args.batch,
                       policy=args.policy, kernel_impl=args.kernel_impl,
                       builder=args.queue_builder, lr=args.lr,
+                      scan_signed_inputs=args.scan_signed_inputs,
                       device=args.device, relu_live=True)
     for i, rec in enumerate(run["steps"]):
         print(f"  step {i}: loss {rec['loss']:.4f}  "

@@ -34,18 +34,19 @@ class SparsityPolicy:
     queue_builder: Literal["prefix_sum", "argsort"] = "prefix_sum"
     block: Tuple[int, int, int] = (128, 128, 128)
     grouped_block: Optional[Tuple[int, int, int]] = None
+    grouped_sparsity_min_k: int = 1       # per-group K below which grouped
+                                          # GEMMs drop their operand masks
     kernel_impl: Literal["pallas", "xla_ref"] = "xla_ref"
-    scan_signed_inputs: bool = False      # not ported yet: raises if set
+    fuse_epilogue: bool = True            # False: σ′ as a separate pass
+                                          # after the GEMM (ablation)
+    scan_signed_inputs: bool = False      # FP: opt-in bitmap_scan of signed
+                                          # raw inputs (no ReLU to fuse into)
     autotune: bool = False                # not ported yet: raises if set
 
     def __post_init__(self):
         if self.autotune:
             raise NotImplementedError(
                 "autotune=True: the autotuner is not ported yet")
-        if self.scan_signed_inputs:
-            raise NotImplementedError(
-                "scan_signed_inputs=True: the bitmap_scan kernel is not "
-                "ported yet")
         if self.kernel_impl not in ("pallas", "xla_ref"):
             raise ValueError(f"unknown kernel_impl {self.kernel_impl!r}")
 

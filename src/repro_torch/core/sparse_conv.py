@@ -2,9 +2,12 @@
 port of ``repro.core.sparse_conv``).
 
 One engine, a ``torch.autograd.Function`` taking ``(fused_relu, groups)``;
-``relu_conv`` (fused ReLU) and ``conv`` (signed input: pool or input-layer
-boundary) are thin faces over it.  All three stages realize the same
-skipping opportunities as ``core.sparse_linear``: FP input sparsity of
+``relu_conv`` (fused ReLU), ``conv`` (signed input: pool or input-layer
+boundary) and their depthwise forms (``groups == C``, MobileNet's dw layers)
+are thin faces over it.  A grouped conv runs each stage as ONE batched
+(G, ·, ·) masked GEMM with degenerate per-group tiles
+(``policy.gemm_spec(dims=..., grans=...)``).  All three stages realize the
+same skipping opportunities as ``core.sparse_linear``: FP input sparsity of
 relu(x_pre) patches; BP output sparsity from σ'(x_pre) plus input sparsity
 of the incoming gradient patches; WG input sparsity on both operands.
 
@@ -12,10 +15,10 @@ The forward runs the fused ``relu_encode`` over the activation's
 (N·H·W, C) view once, at per-pixel row granularity; every other mask is
 derived from that bitmap: the BP out_mask by re-tiling, the patch masks by
 running ``_im2col`` on the bitmap itself, the dy masks from the producing
-GEMM's emitted bitmap.
-
-Only the ``groups == 1`` branch is ported; grouped and depthwise convs raise
-``NotImplementedError``.
+GEMM's emitted bitmap.  The channel granularity divides C//G, so the
+per-group masks are pure reshapes of the same bitmaps (``_group_*``).  A
+signed input gets its bitmap from one ``bitmap_scan`` when the policy opts
+in (``scan_signed_inputs``).
 """
 from __future__ import annotations
 
@@ -79,6 +82,49 @@ def _dilate_hw(x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Group splitting — pure reshapes; the (tap, channel)-minor K ordering means
+# group g's columns are contiguous per tap, so one permute regroups a patch
+# matrix (data OR bitmap) into the (G, ·, ·) batched-GEMM layout.
+# ---------------------------------------------------------------------------
+
+def _group_patches(pm2: torch.Tensor, taps: int, groups: int) -> torch.Tensor:
+    """(T, taps*C') patch matrix -> (G, T, taps*C'/G), per-group K slices.
+    Works on data (C' = C) and fine bitmaps (C' = C/gc) alike."""
+    t, k = pm2.shape
+    cg = k // taps // groups
+    return pm2.reshape(t, taps, groups, cg).permute(2, 0, 1, 3) \
+        .reshape(groups, t, taps * cg)
+
+
+def _group_cols(x2: torch.Tensor, groups: int) -> torch.Tensor:
+    """(T, C') channel-minor matrix -> (G, T, C'/G), a strided view."""
+    t, c = x2.shape
+    return x2.reshape(t, groups, c // groups).transpose(0, 1)
+
+
+def _ungroup_cols(x3: torch.Tensor) -> torch.Tensor:
+    """(G, T, C/G) -> (T, C), inverse of ``_group_cols``."""
+    g, t, cg = x3.shape
+    return x3.transpose(0, 1).reshape(t, g * cg)
+
+
+def _group_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """(R, S, C//G, M) grouped-HWIO weights -> (G, R·S·C//G, M//G): output
+    block g (channels [g·M/G, (g+1)·M/G)) reads input group g."""
+    r, s, cg, m = w.shape
+    return w.reshape(r * s * cg, groups, m // groups).transpose(0, 1)
+
+
+def _group_weights_bwd(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per-group dX weights: (R, S, C//G, M) -> (G, R·S·M//G, C//G),
+    spatially flipped and (r, s, m, c)-ordered to match gradient patches."""
+    r, s, cg, m = w.shape
+    mg = m // groups
+    wf = torch.flip(w, dims=(0, 1)).reshape(r, s, cg, groups, mg)
+    return wf.permute(3, 0, 1, 4, 2).reshape(groups, r * s * mg, cg)
+
+
+# ---------------------------------------------------------------------------
 # Bitmap derivation (no tensor-sized scans past this line)
 # ---------------------------------------------------------------------------
 
@@ -135,20 +181,17 @@ def _grad_sparse_tensor(dy, policy: SparsityPolicy, m: int,
 # ---------------------------------------------------------------------------
 
 class _ConvEngine(torch.autograd.Function):
-    """y = conv2d(relu(x) if fused_relu else x, w).  x: (N,H,W,C) NHWC;
-    w: (R,S,C,M) HWIO."""
+    """y = conv2d(relu(x) if fused_relu else x, w, groups).  x: (N,H,W,C)
+    NHWC; w: (R,S,C//G,M) grouped HWIO."""
 
     @staticmethod
     def forward(ctx, x_in, w, stride: int, padding: str,
                 policy: SparsityPolicy, fused_relu: bool, groups: int):
-        if groups != 1:
-            raise NotImplementedError(
-                "grouped/depthwise convs are not ported yet")
         n, h, wd, c = x_in.shape
         r, s, cg_w, m = w.shape
-        if cg_w != c:
+        if c % groups or m % groups or cg_w != c // groups:
             raise ValueError(f"weights {tuple(w.shape)} do not match input "
-                             f"{tuple(x_in.shape)}")
+                             f"{tuple(x_in.shape)} in {groups} groups")
         plh = _pad_amounts(h, r, stride, padding)
         plw = _pad_amounts(wd, s, stride, padding)
         pad4 = (plh[0], plh[1], plw[0], plw[1])
@@ -157,25 +200,53 @@ class _ConvEngine(torch.autograd.Function):
             gc = conv_channel_granularity(c, policy.block, groups)
             x, st = _encode_conv_act(x_in, policy, gc)
         else:
-            # fused ReLU without metadata, or a signed input (no fused
-            # encode; the reference's opt-in signed scan is not ported).
             x = torch.relu(x_in) if fused_relu else x_in
             st = SparseTensor(None, None)
+            # A signed input (pool / input-layer boundary) has no fused
+            # encode: its bitmap costs one standalone scan, opt-in.
+            if not fused_relu and policy.scan_signed_inputs \
+                    and policy.kernel_impl == "pallas" \
+                    and (policy.use_input_sparsity_fp
+                         or policy.use_input_sparsity_bp):
+                gc = conv_channel_granularity(c, policy.block, groups)
+                st = SparseTensor(
+                    scan_bitmap(x.reshape(n * h * wd, c), (1, gc),
+                                kind="act", impl=policy.kernel_impl),
+                    (1, gc))
 
         patches = _im2col(x, r, s, stride, pad4)
         u, v = patches.shape[1], patches.shape[2]
-        pm = patches.reshape(n * u * v, r * s * c)
-        a_mask = None
-        if (policy.use_input_sparsity_fp and policy.kernel_impl == "pallas"
-                and st.bitmap is not None):
-            bm, bk, bn = policy.block
-            a_mask = _patch_bitmap(st, (n, h, wd, c), r, s, stride, pad4) \
-                .mask_for((bm, bk))
-        y = _mm(pm, w.reshape(r * s * c, m), None, a_mask, None, policy,
-                x_in.dtype)
+        t = n * u * v
+        pm = patches.reshape(t, r * s * c)
+        want_a_mask = (policy.use_input_sparsity_fp
+                       and policy.kernel_impl == "pallas"
+                       and st.bitmap is not None)
+        if groups == 1:
+            a_mask = None
+            if want_a_mask:
+                bm, bk, bn = policy.block
+                a_mask = _patch_bitmap(st, (n, h, wd, c), r, s, stride,
+                                       pad4).mask_for((bm, bk))
+            y = _mm(pm, w.reshape(r * s * c, m), None, a_mask, None, policy,
+                    x_in.dtype)
+        else:
+            cg, mg = c // groups, m // groups
+            gc = st.gran[1] if st.gran else 1
+            spec = policy.gemm_spec(groups=groups, dims=(t, r * s * cg, mg),
+                                    grans=(1, gc, 1))
+            blk = spec.block
+            a_mask = None
+            if want_a_mask and r * s * cg >= policy.grouped_sparsity_min_k:
+                pb = _patch_bitmap(st, (n, h, wd, c), r, s, stride, pad4)
+                pbg = _group_patches(pb.bitmap, r * s, groups)
+                a_mask = coarsen_bitmap(pbg, (1, gc), (blk[0], blk[1]))
+            yg = _mm(_group_patches(pm, r * s, groups),
+                     _group_weights(w, groups), None, a_mask, None, policy,
+                     x_in.dtype, spec=spec)
+            y = _ungroup_cols(yg)
         ctx.save_for_backward(x_in, w)
         ctx.st = st
-        ctx.cfg = (stride, padding, policy, fused_relu)
+        ctx.cfg = (stride, padding, policy, fused_relu, groups)
         ctx.layer = stats.current_layer()
         return y.reshape(n, u, v, m)
 
@@ -188,7 +259,7 @@ class _ConvEngine(torch.autograd.Function):
     def _backward(ctx, dy):
         x_in, w = ctx.saved_tensors
         st = ctx.st
-        stride, padding, policy, fused_relu = ctx.cfg
+        stride, padding, policy, fused_relu, groups = ctx.cfg
         n, h, wd, c = x_in.shape
         r, s, _, m = w.shape
         u, v = dy.shape[1], dy.shape[2]
@@ -202,8 +273,10 @@ class _ConvEngine(torch.autograd.Function):
             x = x_in
         out_dtype = x_in.dtype
         dy32 = dy.to(torch.float32)
-        st_dy = _grad_sparse_tensor(dy, policy, m)
+        st_dy = _grad_sparse_tensor(dy, policy, m, groups)
         t = n * u * v
+        cg, mg = c // groups, m // groups
+        gc = st.gran[1] if st.gran else 1
         gcg = st_dy.gran[1] if st_dy.gran else 1
 
         # ---- dX: full correlation of the dilated dy with the flipped w;
@@ -220,29 +293,55 @@ class _ConvEngine(torch.autograd.Function):
         gm2 = _im2col(dyd, r, s, 1, gpad4).reshape(n * h * wd, r * s * m)
         use_out = fused_relu and policy.use_output_sparsity \
             and st.bitmap is not None
-        g_mask = None
+        gpb2 = None
         if st_dy.bitmap is not None:
             with stats.lifecycle_scope("derive", "grad_patches"):
                 gfb4 = st_dy.bitmap.reshape(n, u, v, m // gcg)
                 gpb = _im2col(_dilate_hw(gfb4, stride), r, s, 1, gpad4)
                 gpb2 = gpb.reshape(n * h * wd, -1)
-            g_mask = coarsen_bitmap(gpb2, (1, gcg), (bm, bk))
         mask2d = relu_mask.reshape(n * h * wd, c).to(torch.float32) \
             if fused_relu else None
         # This dX GEMM produces the layer below's dy: its epilogue emits
         # that dy's fine bitmap and registers it against the returned dx.
-        emit_gc = conv_channel_granularity(c, policy.block) \
+        emit_gc = conv_channel_granularity(c, policy.block, groups) \
             if _needs_grad_bitmap(policy) else None
-        wt = torch.flip(w, dims=(0, 1)).permute(0, 1, 3, 2) \
-            .reshape(r * s * m, c).to(torch.float32)
-        out_mask = st.mask_for((bm, bn)) if use_out else None
-        res_dx = _mm(gm2, wt, out_mask, g_mask, None, policy, out_dtype,
-                     epilogue=mask2d,
-                     emit_gran=None if emit_gc is None else (1, emit_gc))
-        dx2, dx_bits = res_dx if emit_gc is not None else (res_dx, None)
+        emit = None if emit_gc is None else (1, emit_gc)
+        if groups == 1:
+            wt = torch.flip(w, dims=(0, 1)).permute(0, 1, 3, 2) \
+                .reshape(r * s * m, c).to(torch.float32)
+            out_mask = st.mask_for((bm, bn)) if use_out else None
+            g_mask = None if gpb2 is None \
+                else coarsen_bitmap(gpb2, (1, gcg), (bm, bk))
+            res_dx = _mm(gm2, wt, out_mask, g_mask, None, policy, out_dtype,
+                         epilogue=mask2d, emit_gran=emit)
+            dx2, dx_bits = res_dx if emit is not None else (res_dx, None)
+        else:
+            spec = policy.gemm_spec(groups=groups,
+                                    dims=(n * h * wd, r * s * mg, cg),
+                                    grans=(1, gcg, gc))
+            blk = spec.block
+            out_mask = None
+            if use_out:
+                out_mask = coarsen_bitmap(_group_cols(st.bitmap, groups),
+                                          (1, gc), (blk[0], blk[2]))
+            g_mask = None
+            if gpb2 is not None \
+                    and r * s * mg >= policy.grouped_sparsity_min_k:
+                g_mask = coarsen_bitmap(_group_patches(gpb2, r * s, groups),
+                                        (1, gcg), (blk[0], blk[1]))
+            epi = None if mask2d is None else _group_cols(mask2d, groups)
+            res_dx = _mm(_group_patches(gm2, r * s, groups),
+                         _group_weights_bwd(w, groups).to(torch.float32),
+                         out_mask, g_mask, None, policy, out_dtype,
+                         epilogue=epi, spec=spec, emit_gran=emit)
+            dxg, dxg_bits = res_dx if emit is not None else (res_dx, None)
+            dx2 = _ungroup_cols(dxg)
+            # Per-group bit columns regroup to the full channel axis the
+            # same way the data does (cells nest inside groups).
+            dx_bits = None if dxg_bits is None else _ungroup_cols(dxg_bits)
         dx = dx2.reshape(n, h, wd, c)
-        if emit_gc is not None:
-            register_grad_bitmap(dx, dx_bits, (1, emit_gc))
+        if emit is not None:
+            register_grad_bitmap(dx, dx_bits, emit)
 
         # ---- dW = patches(x)ᵀ @ dy — WG stage, input sparsity both sides;
         # the kernel reads patchesᵀ through its strides ----
@@ -250,19 +349,41 @@ class _ConvEngine(torch.autograd.Function):
         pm = _im2col(x, r, s, stride, pad4).reshape(t, r * s * c) \
             .to(torch.float32)
         dym = dy32.reshape(t, m)
-        pt_mask = None
-        if _needs_grad_bitmap(policy) and st.bitmap is not None:
-            pt_mask = _patch_bitmap(st, (n, h, wd, c), r, s, stride, pad4) \
-                .t_mask_for((bm, bk))
-        dym_mask = st_dy.mask_for((bk, bn))
-        dw = _mm(pm.t(), dym, None, pt_mask, dym_mask, policy, torch.float32)
-        dw = dw.reshape(r, s, c, m).to(w.dtype)
-        return dx, dw, None, None, None, None, None
+        want_pt_mask = _needs_grad_bitmap(policy) and st.bitmap is not None
+        if groups == 1:
+            pt_mask = None
+            if want_pt_mask:
+                pt_mask = _patch_bitmap(st, (n, h, wd, c), r, s, stride,
+                                        pad4).t_mask_for((bm, bk))
+            dym_mask = st_dy.mask_for((bk, bn))
+            dw = _mm(pm.t(), dym, None, pt_mask, dym_mask, policy,
+                     torch.float32)
+            dw = dw.reshape(r, s, c, m)
+        else:
+            spec = policy.gemm_spec(groups=groups, dims=(r * s * cg, t, mg),
+                                    grans=(gc, 1, gcg))
+            blk = spec.block
+            pt_mask = None
+            if want_pt_mask:
+                pb = _patch_bitmap(st, (n, h, wd, c), r, s, stride, pad4)
+                pbg = _group_patches(pb.bitmap, r * s, groups)
+                pt_mask = coarsen_bitmap(pbg.transpose(1, 2), (gc, 1),
+                                         (blk[0], blk[1]))
+            dym_mask = None
+            if st_dy.bitmap is not None:
+                dym_mask = coarsen_bitmap(_group_cols(st_dy.bitmap, groups),
+                                          (1, gcg), (blk[1], blk[2]))
+            dwg = _mm(_group_patches(pm, r * s, groups).transpose(1, 2),
+                      _group_cols(dym, groups), None, pt_mask, dym_mask,
+                      policy, torch.float32, spec=spec)
+            # (G, R·S·C//G, M//G) -> (R, S, C//G, M), group-major outputs
+            dw = dwg.transpose(0, 1).reshape(r, s, cg, m)
+        return dx, dw.to(w.dtype), None, None, None, None, None
 
 
 def relu_conv(x_pre: torch.Tensor, w: torch.Tensor, stride: int,
               padding: str, policy: SparsityPolicy, groups: int = 1):
-    """y = conv2d(relu(x_pre), w). x_pre: (N,H,W,C); w: (R,S,C,M)."""
+    """y = conv2d(relu(x_pre), w). x_pre: (N,H,W,C); w: (R,S,C//G,M)."""
     return _ConvEngine.apply(x_pre, w, stride, padding, policy, True, groups)
 
 
@@ -271,3 +392,18 @@ def conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: str,
     """Plain conv2d (no fused ReLU): FP/BP input sparsity only; used at
     pool→conv and input-layer boundaries."""
     return _ConvEngine.apply(x, w, stride, padding, policy, False, groups)
+
+
+def depthwise_relu_conv(x_pre: torch.Tensor, w: torch.Tensor, stride: int,
+                        padding: str, policy: SparsityPolicy):
+    """Depthwise conv over relu(x_pre): groups == C, w: (R,S,1,C·mult).
+    The engine runs C tiny masked GEMMs as one batched launch per stage."""
+    return _ConvEngine.apply(x_pre, w, stride, padding, policy, True,
+                             x_pre.shape[-1])
+
+
+def depthwise_conv(x: torch.Tensor, w: torch.Tensor, stride: int,
+                   padding: str, policy: SparsityPolicy):
+    """Depthwise conv over signed x (no fused ReLU): groups == C."""
+    return _ConvEngine.apply(x, w, stride, padding, policy, False,
+                             x.shape[-1])

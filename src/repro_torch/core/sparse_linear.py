@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import stats
-from repro_torch.kernels.ops import GemmMasks
+from repro_torch.kernels.ops import GemmMasks, GemmSpec
 from .policy import SparsityPolicy
 from .sparse_tensor import (
     SparseTensor,
@@ -37,16 +37,29 @@ from .sparse_tensor import (
 
 def _mm(a, b, out_mask, a_mask, b_mask, policy: SparsityPolicy, out_dtype,
         epilogue: Optional[torch.Tensor] = None,
+        spec: Optional[GemmSpec] = None,
         emit_gran: Optional[Tuple[int, int]] = None):
     """Route one masked matmul through ``kernels.ops.sparse_gemm``, resolving
-    the policy to a ``GemmSpec``.
+    the policy to a ``GemmSpec`` unless the caller already resolved one (the
+    conv engine passes specs carrying degenerate per-group tiles).
 
-    ``epilogue`` is an (M, N) multiplier fused into the writeback.
+    ``epilogue`` is an (M, N) multiplier fused into the writeback, or, with
+    ``policy.fuse_epilogue=False`` on a kernel schedule, applied as a
+    separate pass after the GEMM (the ablation; its bits are then dropped).
     ``emit_gran`` requests the ``bitmap_emit`` stage: the result is then
-    ``(out, bits_or_None)``; None bits mean the emission was dropped (a
-    tile the granularity does not divide)."""
-    spec = policy.gemm_spec(groups=a.shape[0] if a.dim() == 3 else 1)
+    ``(out, bits_or_None)``; None bits mean the emission was dropped (the
+    ablation, or a tile the granularity does not divide).  3-D operands
+    (G, M, K) @ (G, K, N) dispatch as a grouped spec."""
+    if spec is None:
+        spec = policy.gemm_spec(groups=a.shape[0] if a.dim() == 3 else 1)
     masks = GemmMasks(out_mask, a_mask, b_mask)
+    if epilogue is not None and spec.schedule != "dense" \
+            and not policy.fuse_epilogue:
+        out = kops.sparse_gemm(a, b, masks,
+                               spec.with_(epilogue=(), emit_gran=None,
+                                          out_dtype=torch.float32))
+        out = (out * epilogue.to(torch.float32)).to(out_dtype)
+        return (out, None) if emit_gran is not None else out
     if emit_gran is not None and (spec.block[0] % emit_gran[0]
                                   or spec.block[2] % emit_gran[1]):
         emit_gran = None
@@ -222,11 +235,21 @@ def relu_matmul(x_pre: torch.Tensor, w: torch.Tensor,
 class _Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, policy: SparsityPolicy):
-        # Raw inputs have no ReLU to fuse an encode into; the opt-in scan of
-        # the reference (scan_signed_inputs) is not ported, so no bitmap.
-        y = _mm(x, w, None, None, None, policy, x.dtype)
+        bm, bk, bn = policy.block
+        st = SparseTensor(None, None)
+        # Raw (signed) inputs have no ReLU to fuse an encode into, so their
+        # bitmap costs a standalone scan — opt-in via scan_signed_inputs.
+        if policy.scan_signed_inputs and policy.kernel_impl == "pallas" and (
+                policy.use_input_sparsity_fp or policy.use_input_sparsity_bp):
+            gran = linear_act_granularity(policy.block)
+            st = SparseTensor(scan_bitmap(x, gran, kind="act",
+                                          impl=policy.kernel_impl), gran)
+        a_mask = None
+        if policy.use_input_sparsity_fp and policy.kernel_impl == "pallas":
+            a_mask = st.mask_for((bm, bk))
+        y = _mm(x, w, None, a_mask, None, policy, x.dtype)
         ctx.save_for_backward(x, w)
-        ctx.policy = policy
+        ctx.st, ctx.policy = st, policy
         ctx.layer = stats.current_layer()
         return y
 
@@ -238,7 +261,7 @@ class _Matmul(torch.autograd.Function):
     @staticmethod
     def _backward(ctx, dy):
         x, w = ctx.saved_tensors
-        policy = ctx.policy
+        st, policy = ctx.st, ctx.policy
         bm, bk, bn = policy.block
         dy32 = dy.to(torch.float32)
         st_dy = _grad_sparse_tensor_linear(dy, policy)
@@ -253,11 +276,13 @@ class _Matmul(torch.autograd.Function):
         else:
             dx = res_dx
         xt = x.to(torch.float32).t()
+        xt_mask = st.t_mask_for((bm, bk)) if _needs_grad_bitmap(policy) \
+            else None
         dyb_mask = st_dy.mask_for((bk, bn))
-        dw = _mm(xt, dy32, None, None, dyb_mask, policy, w.dtype)
+        dw = _mm(xt, dy32, None, xt_mask, dyb_mask, policy, w.dtype)
         register_grad_bitmap(
             dw,
-            _wg_bitmap(None, dyb_mask, -(-w.shape[0] // bm),
+            _wg_bitmap(xt_mask, dyb_mask, -(-w.shape[0] // bm),
                        -(-x.shape[0] // bk), -(-w.shape[1] // bn)),
             (bm, bn))
         return dx, dw, None

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import stats
 
@@ -148,11 +149,12 @@ def lookup_grad_bitmap(obj, *, peek: bool = False):
 
 def scan_bitmap(x2d: torch.Tensor, gran: Tuple[int, int],
                 *, kind: str = "act", impl: str = "xla_ref") -> torch.Tensor:
-    """One counted dense scan -> fine bitmap, on the reference's non-Pallas
-    path (counted as ``scan:<kind>``).  The Pallas ``bitmap_scan`` kernel is
-    not ported yet."""
+    """One counted dense scan -> fine bitmap, for signed data where no fused
+    encode produced one.  ``impl="pallas"`` runs the ``bitmap_scan`` kernel
+    (counted as ``scan_pallas:<kind>``); otherwise a plain scan (counted as
+    ``scan:<kind>``)."""
     if impl == "pallas":
-        raise NotImplementedError("the bitmap_scan kernel is not ported yet")
+        return kops.bitmap_scan(x2d, block=gran, kind=kind)
     gr, gc = gran
     m, n = x2d.shape
     mp, np_ = _ceil_div(m, gr) * gr, _ceil_div(n, gc) * gc

@@ -7,7 +7,13 @@
 //   predicated replaces repro/kernels/masked_matmul.py:_gmm_kernel
 //              (grouped_masked_matmul_kernel): one block per (g, i, j) tile
 //              of the full grid; a tile whose out_mask bit is 0 keeps the
-//              zeros the caller filled in.
+//              zeros the caller filled in.  At G = 1 it also replaces the
+//              2-D _mm_kernel / _mm_epilogue_kernel (masked_matmul_kernel).
+//   compact_out replaces the 2-D _mm_compact_kernel /
+//              _mm_compact_epilogue_kernel (compact_masked_matmul_kernel):
+//              G = 1, one block per queue slot s < n_active, and the tile
+//              goes to slot s of an (S, bm, bn) compacted output; slots
+//              s >= n_active keep the caller's zeros.
 //
 // For its tile (g, i, j) a block computes
 //   out = sum over k blocks with a_mask[g,i,kb] && b_mask[g,kb,j] of A.B,
@@ -48,14 +54,15 @@ constexpr int TN = 128;
 constexpr int TK = 16;
 constexpr int kThreads = 256;
 
-enum { kPredicated = 0, kCompact = 1 };
+enum { kPredicated = 0, kCompact = 1, kCompactOut = 2 };
 
 struct GemmArgs {
   const float* A;
   long long sAg, sAm, sAk;
   const float* B;
   long long sBg, sBk, sBn;
-  float* out;          // (G, M, N) contiguous, zero-filled
+  float* out;          // (G, M, N), or (cap, bm, bn) in compact_out mode;
+                       // contiguous, zero-filled
   int* bits;           // (G, Mc, Nc) contiguous, zero-filled, or null
   const int* out_mask; // (G, Mb, Nb) or null (all live)
   const int* a_mask;   // (G, Mb, Kb) or null
@@ -73,12 +80,18 @@ struct GemmArgs {
   int a_kcontig, b_ncontig;
 };
 
+// kOutCompact selects the compact_out mode at compile time, so the two
+// grouped modes compile to the code they had before it existed.  As a
+// runtime branch in the store loop it cut them to 176 registers and made
+// them ~19% slower (VGG16 step on an H100: 281 against 237 ms of GEMMs).
+template <bool kOutCompact>
 __global__ void __launch_bounds__(kThreads)
 masked_gemm_kernel(const GemmArgs p) {
   int g, i, j;
-  if (p.mode == kCompact) {
+  if (kOutCompact || p.mode == kCompact) {
     const int nl = *p.n_live;
-    if (nl > p.cap) return;  // overflow: the predicated launch owns it
+    // overflow: the predicated launch owns it (compact_out has none)
+    if (!kOutCompact && nl > p.cap) return;
     const int s = blockIdx.x;
     if (s >= nl) return;
     const int fi = p.q_fi[s];
@@ -189,7 +202,12 @@ masked_gemm_kernel(const GemmArgs p) {
       const long long o = ((long long)g * p.M + m) * p.N + n;
       float v = acc[r][c];
       if (p.mult != nullptr) v *= p.mult[o];
-      p.out[o] = v;
+      if (kOutCompact) {
+        p.out[((long long)blockIdx.x * p.bm + (m - i * p.bm)) * p.bn +
+              (n - j * p.bn)] = v;
+      } else {
+        p.out[o] = v;
+      }
       if (p.bits != nullptr && fabsf(v) > 0.f)
         p.bits[((long long)g * p.Mc + m / p.er) * p.Nc + n / p.ec] = 1;
     }
@@ -199,9 +217,10 @@ masked_gemm_kernel(const GemmArgs p) {
 }  // namespace
 
 // mode 0 = predicated (grid over every (g, i, j) tile), 1 = compact (grid
-// over the cap queue slots; needs q_fi, q_jj, n_live).  With mode 0 and a
-// non-null n_live the launch is the compact path's overflow fallback and
-// runs only when n_live > cap.  er/ec are ignored when bits is null.
+// over the cap queue slots; needs q_fi, q_jj, n_live), 2 = compact_out (as
+// compact, at G = 1, into the (cap, bm, bn) compacted output).  With mode 0
+// and a non-null n_live the launch is the compact path's overflow fallback
+// and runs only when n_live > cap.  er/ec are ignored when bits is null.
 // Returns the cudaError_t of the launch.
 extern "C" int masked_gemm_launch(
     const float* A, long long sAg, long long sAm, long long sAk,
@@ -249,16 +268,23 @@ extern "C" int masked_gemm_launch(
   p.b_ncontig = sBn == 1;
   const long long nsub = (long long)((bm + TM - 1) / TM) * p.nsub_n;
   const long long tiles =
-      mode == kCompact ? (long long)cap : (long long)G * p.Mb * p.Nb;
+      mode == kPredicated ? (long long)G * p.Mb * p.Nb : (long long)cap;
   if (tiles == 0 || M == 0 || N == 0) return 0;
   if (tiles > 0x7fffffffLL || nsub > 65535) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  if (mode == kCompact && (q_fi == nullptr || q_jj == nullptr ||
-                           n_live == nullptr)) {
+  if (mode != kPredicated && (q_fi == nullptr || q_jj == nullptr ||
+                              n_live == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (mode == kCompactOut && (G != 1 || bits != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   dim3 grid((unsigned)tiles, (unsigned)nsub);
-  masked_gemm_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+  if (mode == kCompactOut) {
+    masked_gemm_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+  } else {
+    masked_gemm_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+  }
   return (int)cudaGetLastError();
 }

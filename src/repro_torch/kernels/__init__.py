@@ -6,7 +6,16 @@ kernel in ``csrc/<name>.cu`` for CUDA tensors, its plain PyTorch version
 ``sparse_gemm`` dispatcher; ``shapes.py`` — pad/tile helpers; ``ref.py`` —
 pure-torch oracles; ``_build.py`` — the nvcc build and ctypes loader.
 """
-from . import masked_matmul, ops, queue_builder, ref, relu_encode, shapes, stats  # noqa: F401
+from . import (  # noqa: F401
+    bitmap_scan,
+    masked_matmul,
+    ops,
+    queue_builder,
+    ref,
+    relu_encode,
+    shapes,
+    stats,
+)
 from .ops import (  # noqa: F401
     GemmMasks,
     GemmSpec,
@@ -22,6 +31,9 @@ def launch_counts() -> dict:
         "queue_builder": queue_builder.launches,
         "compact_gemm": masked_matmul.compact_launches,
         "predicated_gemm": masked_matmul.predicated_launches,
+        "bitmap_scan": bitmap_scan.launches,
+        "masked_matmul_2d": masked_matmul.masked_2d_launches,
+        "compact_masked_matmul_2d": masked_matmul.compact_2d_launches,
     }
 
 
@@ -30,3 +42,6 @@ def reset_launch_counts() -> None:
     queue_builder.launches = 0
     masked_matmul.compact_launches = 0
     masked_matmul.predicated_launches = 0
+    bitmap_scan.launches = 0
+    masked_matmul.masked_2d_launches = 0
+    masked_matmul.compact_2d_launches = 0

@@ -35,6 +35,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of the launchers; every one returns its cudaError_t.
 SIGNATURES = {
+    "bitmap_scan_launch": [_P, _L, _P, _I, _I, _I, _I, _P],
     "relu_encode_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "queue_builder_launch": [_P, _I, _I, _I, _P, _P, _P, _P],
     "masked_gemm_launch": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P,

@@ -1,4 +1,5 @@
-"""Grouped block-sparse GEMMs: kernels K3 (compact) and K4 (predicated) and
+"""Block-sparse GEMMs: kernels K3 (grouped compact), K4 (grouped
+predicated), K6 (2-D predicated) and K7 (2-D compact, compacted output), and
 their plain versions.
 
 Source note.  K3 replaces the TPU kernel ``repro/kernels/masked_matmul.py``
@@ -15,6 +16,15 @@ operands need no copy); tiles and bits are written straight to their
 (g, i, j) place in a zero-filled output, so the TPU path's compacted buffer,
 its scatter and the padded operand copies disappear; queue overflow is
 decided on the device (see ``csrc/masked_matmul.cu``).
+
+K6 and K7 replace the 2-D TPU kernels ``masked_matmul_kernel``
+(``_mm_kernel``, ``_mm_epilogue_kernel``) and ``compact_masked_matmul_kernel``
+(``_mm_compact_kernel``, ``_mm_compact_epilogue_kernel``).  No training path
+runs them: as in the reference they are the frozen 2-D oracle that pins
+``sparse_gemm(G=1)``.  They are the same CUDA kernel at G = 1, K6 in
+predicated mode and K7 in a compacted-output mode where block s writes its
+tile to slot s of an (S, bm, bn) buffer, slots s ≥ n_active staying zero;
+like K3/K4 they are bound by operations.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors.  Both forms write into a caller-provided zero-filled
@@ -33,8 +43,10 @@ from .shapes import ceil_to, grid_shape
 # Kernel launches since the last reset (plain-version calls are not counted).
 compact_launches = 0
 predicated_launches = 0
+masked_2d_launches = 0
+compact_2d_launches = 0
 
-_PREDICATED, _COMPACT = 0, 1
+_PREDICATED, _COMPACT, _COMPACT_OUT = 0, 1, 2
 
 Result = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -111,9 +123,8 @@ def _check_mask(name, mask, shape, device):
         raise ValueError(f"{name} must be contiguous on {device}")
 
 
-def _prepare(a, b, out_mask, a_mask, b_mask, block, mult, emit_gran, out,
-             bits):
-    """Validate the operands and allocate the zero-filled outputs."""
+def _validate(a, b, out_mask, a_mask, b_mask, block, mult):
+    """Check the operands, masks and multiplier of a grouped request."""
     if a.dim() != 3 or b.dim() != 3:
         raise ValueError(f"grouped GEMM wants 3-D operands, got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
@@ -127,7 +138,6 @@ def _prepare(a, b, out_mask, a_mask, b_mask, block, mult, emit_gran, out,
     dev = a.device
     if b.device != dev or dev.type not in ("cpu", "cuda"):
         raise ValueError(f"operands on {a.device} and {b.device}")
-    bm, bk, bn = block
     if min(block) < 1:
         raise ValueError(f"bad block {block}")
     ni, nk, nj = grid_shape((m, k, n), block)
@@ -140,6 +150,16 @@ def _prepare(a, b, out_mask, a_mask, b_mask, block, mult, emit_gran, out,
                              or not mult.is_contiguous()):
         raise ValueError(f"epilogue_mult must be contiguous float32 "
                          f"{(g, m, n)} on {dev}")
+
+
+def _prepare(a, b, out_mask, a_mask, b_mask, block, mult, emit_gran, out,
+             bits):
+    """Validate the operands and allocate the zero-filled outputs."""
+    _validate(a, b, out_mask, a_mask, b_mask, block, mult)
+    g, m, _ = a.shape
+    n = b.shape[2]
+    dev = a.device
+    bm, _, bn = block
     if out is None:
         out = torch.zeros((g, m, n), dtype=torch.float32, device=dev)
     elif (out.dtype != torch.float32 or tuple(out.shape) != (g, m, n)
@@ -158,6 +178,17 @@ def _prepare(a, b, out_mask, a_mask, b_mask, block, mult, emit_gran, out,
     elif bits is not None:
         raise ValueError("bits given without emit_gran")
     return out, bits
+
+
+def _check_queue(rows, cols, count, device):
+    """A queue is two (S,) and one (1,) contiguous int32 tensors."""
+    for t in (rows, cols, count):
+        if t.dtype != torch.int32 or t.device != device \
+                or not t.is_contiguous() or t.dim() != 1:
+            raise ValueError(f"queue arrays must be contiguous 1-D int32 "
+                             f"tensors on {device}")
+    if rows.numel() != cols.numel() or count.numel() != 1:
+        raise ValueError("queue arrays disagree in length")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -235,13 +266,7 @@ def grouped_compact_masked_matmul_kernel(
     global compact_launches
     out, bits = _prepare(a, b, None, a_mask, b_mask, block, epilogue_mult,
                          emit_gran, out, bits)
-    for name, t in (("fi", fi), ("jj", jj), ("n_live", n_live)):
-        if t.dtype != torch.int32 or t.device != a.device \
-                or not t.is_contiguous() or t.dim() != 1:
-            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor "
-                             f"on {a.device}")
-    if fi.numel() != jj.numel() or n_live.numel() != 1:
-        raise ValueError("queue arrays disagree in length")
+    _check_queue(fi, jj, n_live, a.device)
     if a.device.type == "cpu":
         return grouped_compact_masked_matmul_plain(
             a, b, fi, jj, n_live, a_mask, b_mask, block=block,
@@ -251,3 +276,113 @@ def grouped_compact_masked_matmul_kernel(
             fi, jj, n_live, fi.numel(), block, emit_gran)
     compact_launches += 1
     return out, bits
+
+
+# ---------------------------------------------------------------------------
+# The 2-D launches K6 and K7 (block-aligned, float32, no bitmap emit)
+# ---------------------------------------------------------------------------
+
+def _check_2d(a, b, block, out_dtype):
+    """The 2-D launches take block-aligned float32 requests only."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"bad 2-D operands {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if out_dtype != torch.float32:
+        raise NotImplementedError(f"out_dtype {out_dtype}: only float32")
+    (m, k), n = a.shape, b.shape[1]
+    bm, bk, bn = block
+    if m % bm or k % bk or n % bn:
+        raise ValueError(f"shapes {(m, k, n)} are not multiples of the "
+                         f"block {block}")
+
+
+def _lift(*ts):
+    return [None if t is None else t[None] for t in ts]
+
+
+def masked_matmul_plain(a, b, out_mask, a_mask, b_mask, *, bm, bk, bn,
+                        epilogue_mult=None) -> torch.Tensor:
+    """Plain version of K6: the masked dense product, ×σ′."""
+    return ref.masked_matmul(a, b, out_mask, a_mask, b_mask, bm=bm, bk=bk,
+                             bn=bn, epilogue_mult=epilogue_mult)
+
+
+def masked_matmul_kernel(
+    a: torch.Tensor,                      # (M, K) float32
+    b: torch.Tensor,                      # (K, N) float32
+    out_mask: torch.Tensor,               # (M/bm, N/bn) int32
+    a_mask: torch.Tensor,                 # (M/bm, K/bk) int32
+    b_mask: torch.Tensor,                 # (K/bk, N/bn) int32
+    *,
+    bm: int,
+    bk: int,
+    bn: int,
+    out_dtype=torch.float32,
+    epilogue_mult: Optional[torch.Tensor] = None,   # (M, N) float32
+) -> torch.Tensor:
+    """K6, the 2-D predicated launch: the (M, N) product over the live
+    out_mask tiles with dead operand blocks skipped, ×``epilogue_mult``.
+    Shapes must be block-aligned."""
+    global masked_2d_launches
+    _check_2d(a, b, (bm, bk, bn), out_dtype)
+    _validate(*_lift(a, b, out_mask, a_mask, b_mask), (bm, bk, bn),
+              *_lift(epilogue_mult))
+    if a.device.type == "cpu":
+        return masked_matmul_plain(a, b, out_mask, a_mask, b_mask, bm=bm,
+                                   bk=bk, bn=bn, epilogue_mult=epilogue_mult)
+    out = torch.zeros((1, a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    _launch(_PREDICATED, *_lift(a, b), out, None,
+            *_lift(out_mask, a_mask, b_mask, epilogue_mult), None, None,
+            None, 0, (bm, bk, bn), None)
+    masked_2d_launches += 1
+    return out[0]
+
+
+def compact_masked_matmul_plain(a, b, ii, jj, n_active, a_mask, b_mask, *,
+                                bm, bk, bn, epilogue_mult=None
+                                ) -> torch.Tensor:
+    """Plain version of K7: slot s < n_active holds tile (ii[s], jj[s]) of
+    the masked product ×σ′; the other slots are zero."""
+    (m, _), n = a.shape, b.shape[1]
+    full = ref.masked_matmul(a, b, None, a_mask, b_mask, bm=bm, bk=bk, bn=bn,
+                             epilogue_mult=epilogue_mult)
+    tiles = full.reshape(m // bm, bm, n // bn, bn)[ii.long(), :, jj.long(), :]
+    live = torch.arange(ii.numel(), device=a.device) < n_active[0]
+    return torch.where(live[:, None, None], tiles, torch.zeros_like(tiles))
+
+
+def compact_masked_matmul_kernel(
+    a: torch.Tensor,                      # (M, K) float32
+    b: torch.Tensor,                      # (K, N) float32
+    ii: torch.Tensor,                     # (S,) int32 active tile rows
+    jj: torch.Tensor,                     # (S,) int32 active tile cols
+    n_active: torch.Tensor,               # (1,) int32 live slots
+    a_mask: torch.Tensor,                 # (M/bm, K/bk) int32
+    b_mask: torch.Tensor,                 # (K/bk, N/bn) int32
+    *,
+    bm: int,
+    bk: int,
+    bn: int,
+    out_dtype=torch.float32,
+    epilogue_mult: Optional[torch.Tensor] = None,   # (M, N) float32
+) -> torch.Tensor:
+    """K7, the 2-D compact launch: the COMPACTED (S, bm, bn) output, slot s
+    holding tile (ii[s], jj[s]) for s < n_active and zeros after; the caller
+    scatters it to (M, N).  Shapes must be block-aligned."""
+    global compact_2d_launches
+    _check_2d(a, b, (bm, bk, bn), out_dtype)
+    _validate(*_lift(a, b), None, *_lift(a_mask, b_mask), (bm, bk, bn),
+              *_lift(epilogue_mult))
+    _check_queue(ii, jj, n_active, a.device)
+    if a.device.type == "cpu":
+        return compact_masked_matmul_plain(
+            a, b, ii, jj, n_active, a_mask, b_mask, bm=bm, bk=bk, bn=bn,
+            epilogue_mult=epilogue_mult)
+    out = torch.zeros((ii.numel(), bm, bn), dtype=torch.float32,
+                      device=a.device)
+    _launch(_COMPACT_OUT, *_lift(a, b), out, None, None,
+            *_lift(a_mask, b_mask, epilogue_mult), ii, jj, n_active,
+            ii.numel(), (bm, bk, bn), None)
+    compact_2d_launches += 1
+    return out

@@ -31,6 +31,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from . import masked_matmul, ref, stats
+from . import bitmap_scan as _bitmap_scan
 from . import relu_encode as _relu_encode
 from .queue_builder import build_queue
 from .shapes import grid_shape, pad_mask3
@@ -249,8 +250,20 @@ def _dispatch(a, b, masks: GemmMasks, spec: GemmSpec, mult):
 
 
 # ---------------------------------------------------------------------------
-# Bitmap producer
+# Bitmap producers
 # ---------------------------------------------------------------------------
+
+def bitmap_scan(x: torch.Tensor, *,
+                block: Tuple[int, int] = (DEFAULT_BLOCK[0], DEFAULT_BLOCK[2]),
+                kind: str = "act") -> torch.Tensor:
+    """Block any-nonzero bitmap of SIGNED data at granularity ``block`` —
+    the encoder for tensors with no ReLU to fuse into (raw inputs), counted
+    as ``scan_pallas:<kind>``.  The kernel masks the ragged edge itself, so
+    nothing is padded here."""
+    stats.record(f"scan_pallas:{kind}")
+    with stats.lifecycle_scope("scan", kind):
+        return _bitmap_scan.bitmap_scan(x, block)
+
 
 def relu_encode(z: torch.Tensor, *,
                 block: Tuple[int, int] = (DEFAULT_BLOCK[0], DEFAULT_BLOCK[2])

@@ -3,9 +3,8 @@
 ``CNNModel`` init/apply/loss over a plain dict of tensors keyed like the JAX
 param tree (``{"conv1": {"w": (R,S,C,M)}, ..., "head": {"w": (C, classes)}}``).
 
-Activations are NHWC and weights HWIO, as in the reference.  Only convs
-with ``groups == 1`` are ported: a depthwise node raises
-``NotImplementedError`` (MobileNet waits for the grouped-conv slice).
+Activations are NHWC and weights HWIO, as in the reference.  Depthwise
+nodes (MobileNet) run through the engine's grouped branch.
 """
 from __future__ import annotations
 
@@ -19,7 +18,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.policy import DC, SparsityPolicy
-from repro_torch.core.sparse_conv import _pad_amounts, relu_conv
+from repro_torch.core.sparse_conv import (
+    _pad_amounts,
+    depthwise_conv,
+    depthwise_relu_conv,
+    relu_conv,
+)
 from repro_torch.core.sparse_conv import conv as sconv
 from repro_torch.core.sparse_linear import matmul as smatmul
 from repro_torch.device import resolve_device
@@ -92,15 +96,46 @@ def apply_conv(p: Params, x_pre: torch.Tensor, node: ConvNode,
     """x_pre is the producer's PRE-activation if input_is_relu (the fused
     relu_conv consumes it), else the raw input."""
     if node.depthwise:
-        raise NotImplementedError(
-            f"{node.name}: depthwise convs are not ported yet")
-    if input_is_relu:
+        if x_pre.is_cuda:
+            # On the card every depthwise node runs through the engine: it
+            # takes a channel multiplier (w (R,S,1,C·mult)) and raises
+            # ValueError on any other group structure.
+            face = depthwise_relu_conv if input_is_relu else depthwise_conv
+            y = face(x_pre, p["w"], node.stride, node.padding, policy)
+        elif p["w"].shape[2] != 1 or x_pre.shape[-1] != p["w"].shape[3]:
+            # On CPU tensors, as in the reference: a group structure other
+            # than one weight per channel leaves through this counted
+            # escape, so a run can assert the sparse path lost no layer.
+            stats.record("conv:dense_fallback")
+            with stats.lifecycle_scope("fallback", "conv_dense"):
+                y = _dense_depthwise(p["w"], x_pre, node, input_is_relu)
+        elif input_is_relu:
+            y = depthwise_relu_conv(x_pre, p["w"], node.stride,
+                                    node.padding, policy)
+        else:
+            y = depthwise_conv(x_pre, p["w"], node.stride, node.padding,
+                               policy)
+    elif input_is_relu:
         y = relu_conv(x_pre, p["w"], node.stride, node.padding, policy)
     else:
         y = sconv(x_pre, p["w"], node.stride, node.padding, policy)
     if node.has_bn:
         y = batchnorm(y, p["bn_scale"], p["bn_bias"])
     return y
+
+
+def _dense_depthwise(w: torch.Tensor, x_pre: torch.Tensor, node: ConvNode,
+                     input_is_relu: bool) -> torch.Tensor:
+    """Plain grouped conv (groups = C) of NHWC x with HWIO w, with the
+    reference's explicit SAME/VALID padding."""
+    x = torch.relu(x_pre) if input_is_relu else x_pre
+    _, h, wd, c = x.shape
+    r, s = w.shape[0], w.shape[1]
+    hlo, hhi = _pad_amounts(h, r, node.stride, node.padding)
+    wlo, whi = _pad_amounts(wd, s, node.stride, node.padding)
+    xp = F.pad(x, (0, 0, wlo, whi, hlo, hhi)).permute(0, 3, 1, 2)
+    y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=node.stride, groups=c)
+    return y.permute(0, 2, 3, 1)
 
 
 def apply_pool(x: torch.Tensor, node: PoolNode) -> torch.Tensor:

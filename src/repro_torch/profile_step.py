@@ -1,8 +1,9 @@
 """Where a training step's time goes on the card: one profiled step.
 
 Run on a machine with a CUDA device:
-  PYTHONPATH=src python -m repro_torch.profile_step [--policy IN_OUT_WR]
-      [--image-size 224] [--width 1.0] [--batch 8] [--trace out.json]
+  PYTHONPATH=src python -m repro_torch.profile_step [--net vgg16]
+      [--policy IN_OUT_WR] [--scan-signed-inputs] [--image-size 224]
+      [--width 1.0] [--batch 8] [--trace out.json]
 
 Runs two warm-up steps, then one step under ``torch.profiler`` (CPU and
 CUDA activities), and prints: the step's wall time, the summed device time
@@ -29,7 +30,7 @@ from repro_torch.cnn_training import set_full_precision, train_steps
 from repro_torch.core.policy import SCENARIOS
 from repro_torch.data.pipeline import image_batch
 from repro_torch.device import resolve_device
-from repro_torch.models.cnn import param_leaves
+from repro_torch.models.cnn import NETWORKS, param_leaves
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -84,18 +85,21 @@ def summarize_trace(events: list) -> dict:
             "longest": sorted(launched, key=lambda r: -r[2])}
 
 
-def profile_step(*, policy="IN_OUT_WR", image_size=224, width=1.0,
+def profile_step(*, net="vgg16", policy="IN_OUT_WR",
+                 scan_signed_inputs=False, image_size=224, width=1.0,
                  num_classes=1000, batch=8, device="cuda", trace=None):
     """Profile one step after two warm-up steps; returns a summary dict."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device(device)
     set_full_precision()
-    geom = dict(net="vgg16", image_size=image_size, width=width,
+    geom = dict(net=net, image_size=image_size, width=width,
                 num_classes=num_classes, batch=batch, device=dev)
-    run = train_steps(steps=2, policy=policy, **geom)
+    run = train_steps(steps=2, policy=policy,
+                      scan_signed_inputs=scan_signed_inputs, **geom)
     model, params = run["model"], run["params"]
-    pol = SCENARIOS[policy].with_(kernel_impl="pallas")
+    pol = SCENARIOS[policy].with_(kernel_impl="pallas",
+                                  scan_signed_inputs=scan_signed_inputs)
     img, labels = image_batch(0, 2, batch=batch, image_size=image_size,
                               num_classes=num_classes, device=dev)
     leaves = list(param_leaves(params).values())
@@ -119,14 +123,18 @@ def profile_step(*, policy="IN_OUT_WR", image_size=224, width=1.0,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--net", default="vgg16", choices=list(NETWORKS))
     ap.add_argument("--policy", default="IN_OUT_WR", choices=list(SCENARIOS))
+    ap.add_argument("--scan-signed-inputs", action="store_true")
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--width", type=float, default=1.0)
     ap.add_argument("--num-classes", type=int, default=1000)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
-    res = profile_step(policy=args.policy, image_size=args.image_size,
+    res = profile_step(net=args.net, policy=args.policy,
+                       scan_signed_inputs=args.scan_signed_inputs,
+                       image_size=args.image_size,
                        width=args.width, num_classes=args.num_classes,
                        batch=args.batch, trace=args.trace)
     print(f"step wall {res['wall_ms']:.1f} ms under the profiler; device "

@@ -1,7 +1,8 @@
 """The port's sparse units against the JAX reference, on the CPU.
 
-``relu_matmul``/``matmul`` and the ``groups == 1`` conv engine (stride
-{1, 2} × {SAME, VALID}) run forward and backward in both packages on the
+``relu_matmul``/``matmul`` and the conv engine (stride {1, 2} × {SAME,
+VALID}; tests/test_torch_grouped.py sweeps its grouped branch) run forward
+and backward in both packages on the
 same numpy inputs; the reference side runs its Pallas kernels in interpret
 mode under ``kernel_impl="pallas"``.  Outputs and gradients must agree to
 1e-5 relative to their scale (both sum the same products in f32, in a
@@ -139,23 +140,27 @@ def test_relu_conv_chain_hands_dy_bitmap_through_registry():
     assert tc["registry:hit"] == 1
 
 
-def test_grouped_conv_is_not_ported_yet():
-    _, tp = POLICIES["IN_OUT_WR"]
-    x = torch.zeros((1, 4, 4, 4))
-    w = torch.zeros((3, 3, 2, 4))
-    with pytest.raises(NotImplementedError):
-        tconv.relu_conv(x, w, 1, "SAME", tp, groups=2)
-
-
 def test_policy_rejects_unported_options():
     with pytest.raises(NotImplementedError):
         tpol.IN_OUT_WR.with_(autotune=True)
-    with pytest.raises(NotImplementedError):
-        tpol.IN_OUT_WR.with_(scan_signed_inputs=True)
+    # the signed-input scan is ported: the policy takes it as the reference
+    # does, with the reference's defaults for the grouped-engine fields
+    p = tpol.IN_OUT_WR.with_(scan_signed_inputs=True)
+    assert p.scan_signed_inputs
+    assert (p.grouped_sparsity_min_k, p.fuse_epilogue) == \
+        (jpol.IN_OUT_WR.grouped_sparsity_min_k, jpol.IN_OUT_WR.fuse_epilogue)
+    # dense dims, and the degenerate per-group dims of depthwise dX and WG
+    shapes = [((33, 40, 29), (1, 8, 8), 1), ((100352, 9, 1), (1, 1, 1), 32),
+              ((9, 100352, 1), (1, 1, 1), 32), ((50, 18, 8), (1, 4, 4), 2)]
     for name in jpol.SCENARIOS:
         j, t = jpol.SCENARIOS[name], tpol.SCENARIOS[name]
         for kw in ({}, {"kernel_impl": "pallas"}):
-            js = j.with_(**kw).gemm_spec(dims=(33, 40, 29), grans=(1, 8, 8))
-            ts = t.with_(**kw).gemm_spec(dims=(33, 40, 29), grans=(1, 8, 8))
-            assert (ts.block, ts.schedule, ts.epilogue, ts.queue_builder) \
-                == (js.block, js.schedule, js.epilogue, js.queue_builder)
+            for dims, grans, groups in shapes:
+                js = j.with_(**kw).gemm_spec(groups=groups, dims=dims,
+                                             grans=grans)
+                ts = t.with_(**kw).gemm_spec(groups=groups, dims=dims,
+                                             grans=grans)
+                assert (ts.block, ts.groups, ts.schedule, ts.epilogue,
+                        ts.queue_builder) == (js.block, js.groups,
+                                              js.schedule, js.epilogue,
+                                              js.queue_builder)
