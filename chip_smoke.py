@@ -7,10 +7,17 @@ Phases (any failure makes the exit code nonzero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels under src/repro_torch/csrc, built with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the VGG16 and MobileNet training steps give it (K6 and K7,
-     on no training path, at VGG16 conv4's dX shape, where they must also
-     equal sparse_gemm at G = 1 bit for bit), with its time, its plain
-     version's time, a one-call PyTorch yardstick and its lower bound;
+     the shapes the VGG16 and MobileNet training steps give it, with its
+     time, its plain version's time, a one-call PyTorch yardstick and its
+     lower bound.  The masked GEMM runs each shape in its compact, overflow
+     -> predicated and predicated schedules, which must agree bit for bit,
+     at the split-K weight-gradient shapes (VGG16 conv1, conv2, conv4,
+     MobileNet dw1) and the group-major depthwise dX shapes (dw1, dw2) too;
+     its split-K reduce is held alone against its plain version.  K6 and
+     K7, on no training path, run at VGG16 conv4's dX and WG shapes, where
+     they must also equal sparse_gemm at G = 1 bit for bit.  A capacity-
+     limited dispatch must count fallback:queue_overflow on the card as on
+     the CPU, with no host sync;
   4. VGG16 end to end at full width (224x224, width 1.0, 1000 classes,
      batch 8): three IN_OUT_WR SGD steps and one IN_OUT step through
      ``repro_torch.cnn_training.train_steps``, with the launch counters
@@ -166,13 +173,13 @@ def kernel_phase(dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels import queue_builder as qb
     from repro_torch.kernels import relu_encode as re_
-    from repro_torch.kernels import shapes
+    from repro_torch.kernels import _build, ref, shapes, stats
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
     def report(name, case, err, ok, ms, plain_ms, library_ms, bytes_, ops,
-               rel=None):
+               rel=None, plan=None):
         bound_b = bytes_ / HBM_BYTES_PER_S * 1e3
         bound_o = ops / F32_FLOP_PER_S * 1e3
         bound = max(bound_b, bound_o)
@@ -182,6 +189,8 @@ def kernel_phase(dev):
                 "bound_by": "bytes" if bound_b >= bound_o else "operations"}
         if rel is not None:
             line["rel_err"] = rel
+        if plan is not None:
+            line.update(plan)
         print("kernel " + json.dumps(line), flush=True)
         check(ok, f"{name} {case} matches its plain version")
         if name not in rows:           # the first case is the main one
@@ -221,7 +230,8 @@ def kernel_phase(dev):
                    4.0 * bm.numel() + 8.0 * cap + 4.0, 0.0)
 
     def gemm_case(g, m, k, n, block, live=0.5, sigma=True, a_t=False,
-                  b_mask=True, out_mask=True, a_grouped=False):
+                  b_mask=True, out_mask=True, a_grouped=False,
+                  a_grouped_t=False):
         ni, nk, nj = shapes.grid_shape((m, k, n), block)
         if a_t:   # WG: A = patches^T, a strided view of (K, M) patches
             a = torch.randn(g, k, m, device=dev, generator=gen) \
@@ -229,6 +239,10 @@ def kernel_phase(dev):
         elif a_grouped:   # grouped dX: group g's columns of (M, K*G) patches
             a = torch.randn(m, k * g, device=dev, generator=gen) \
                 .reshape(m, k, g, 1).permute(2, 0, 1, 3).reshape(g, m, k)
+        elif a_grouped_t:   # grouped WG: the same view of (K, M*G), ^T
+            a = torch.randn(k, m * g, device=dev, generator=gen) \
+                .reshape(k, m, g, 1).permute(2, 0, 1, 3).reshape(g, k, m) \
+                .transpose(1, 2)
         else:
             a = torch.randn(g, m, k, device=dev, generator=gen)
         b = torch.randn(g, k, n, device=dev, generator=gen)
@@ -245,9 +259,12 @@ def kernel_phase(dev):
                 .to(torch.float32)
         return a, b, om, am, bmk, mult
 
-    def run_gemm(name, case, g, m, k, n, block, emit, **kw):
+    def run_gemm(name, case, g, m, k, n, block, emit, reduce_row=False,
+                 **kw):
         a, b, om, am, bmk, mult = gemm_case(g, m, k, n, block, **kw)
         ni, _, nj = shapes.grid_shape((m, k, n), block)
+        plan = {"path": mm.gemm_path(g, m, k, n, block),
+                "splits": mm.split_plan(g, m, k, n, block)}
         qmask = om if om is not None else torch.ones(
             g, ni, nj, dtype=torch.int32, device=dev)
         flat = qmask.reshape(g * ni, nj).contiguous()
@@ -291,36 +308,105 @@ def kernel_phase(dev):
         plain_ms = time_ms(plain)
         variants = [("compact_gemm", lambda: compact(flat.numel()), ""),
                     ("compact_gemm", lambda: compact(max(n_live // 2, 1)),
-                     " overflow->predicated")]
-        if om is not None:
-            variants.append(("predicated_gemm", predicated, ""))
+                     " overflow->predicated"),
+                    ("predicated_gemm", predicated, "")]
+        results = []
         for kname, fn, tag in variants:
             if name and kname != name:
                 continue
             got, got_bits = fn()
             torch.cuda.synchronize()
+            results.append(got)
             err, rel, ok = rel_err(got, want)
             if emit is not None:
                 ok = ok and torch.equal(got_bits, want_bits)
-            ok = ok and torch.equal(got == 0, want == 0) if om is not None \
-                else ok
+            ok = ok and torch.equal(got == 0, want == 0)
             report(kname, case + tag, err, ok, time_ms(fn), plain_ms, lib_ms,
-                   bytes_, flops, rel)
+                   bytes_, flops, rel, plan)
+        # One plan per shape: every schedule sums in one order.
+        check(all(torch.equal(r, results[0]) for r in results),
+              f"{case}: compact, its overflow fallback and predicated are "
+              f"bit-equal")
+        if reduce_row:
+            reduce_case(case, a, b, qmask, am, bmk, mult, block, emit,
+                        queues[flat.numel()])
+
+    def reduce_case(case, a, b, qmask, am, bmk, mult, block, emit, queue):
+        """The split-K reduce alone, after one compact GEMM pass, against
+        its plain version: the partials added in split order, x sigma-prime
+        over the live tiles, the bitmap."""
+        g, m, _ = a.shape
+        n = b.shape[2]
+        fi, jj, nl = queue
+        out = torch.zeros(g, m, n, device=dev)
+        bits = None if emit is None else torch.zeros(
+            g, -(-m // emit[0]), -(-n // emit[1]), dtype=torch.int32,
+            device=dev)
+        args, splits, (ws, _) = mm.launch_args(
+            mm._COMPACT, a, b, out, bits, None, am, bmk, mult, fi, jj, nl, fi.numel(),
+            block, emit)
+        lib = _build.load()
+        _build.check(lib.masked_gemm_launch(*args), "masked_gemm")
+        check(splits > 1, f"{case}: split-K plan ({splits} splits)")
+
+        def reduce():
+            _build.check(lib.masked_gemm_reduce_launch(*args), "reduce")
+
+        def plain():
+            total = ws[0].clone()
+            for z in range(1, splits):
+                total += ws[z]
+            live = ref.expand_block_mask(qmask, block[0], block[2])[
+                :, :m, :n].bool()
+            if mult is not None:
+                total = total * mult
+            return torch.where(live, total, torch.zeros_like(total))
+        reduce()
+        torch.cuda.synchronize()
+        want = plain()
+        err, rel, ok = rel_err(out, want)
+        ok = ok and torch.equal(out, want)
+        if emit is not None:
+            ok = ok and torch.equal(bits, mm.emit_bits(want, emit))
+        live_el = float(ref.expand_block_mask(qmask, block[0], block[2])[
+            :, :m, :n].sum())
+        bytes_ = 4.0 * (splits * live_el + (live_el if mult is not None
+                                            else 0.0) + g * m * n
+                        + (0 if bits is None else bits.numel()))
+        report("splitk_reduce", f"{case}, {splits} splits", err, ok,
+               time_ms(reduce), time_ms(plain),
+               time_ms(lambda: torch.sum(ws, 0)), bytes_,
+               (splits - 1) * live_el, rel, {"splits": splits})
 
     # K3/K4: conv4's dX GEMM (sigma-prime + bitmap emit, ~50% live masks),
     # a conv4-shaped WG GEMM (A = patches^T through strides), and a ragged
     # small case with block (8, 16, 8).
     run_gemm("", "conv4 dX 100352x1152x128", 1, 100352, 1152, 128,
              (128, 128, 128), (1, 128), b_mask=False)
-    run_gemm("compact_gemm", "conv4 WG 1152x100352x128", 1, 1152, 100352,
+    run_gemm("", "conv4 WG 1152x100352x128", 1, 1152, 100352,
              128, (128, 128, 128), None, sigma=False, a_t=True,
              out_mask=False)
     run_gemm("", "ragged 2x333x250x77 block 8x16x8", 2, 333, 250, 77,
              (8, 16, 8), (2, 4))
     # Grouped: MobileNet dw1's dX GEMM, 32 groups of (100,352 x 9) @ (9 x 1)
-    # on degenerate (128, 9, 1) tiles, A a strided per-group view.
+    # on degenerate (128, 9, 1) tiles, A a strided per-group view (the
+    # group-major rows path), and dw2's, 64 groups.
     run_gemm("", "dw1 dX 32x(100352x9x1) block 128x9x1", 32, 100352, 9, 1,
              (128, 9, 1), (1, 1), b_mask=False, a_grouped=True)
+    run_gemm("", "dw2 dX 64x(100352x9x1) block 128x9x1", 64, 100352, 9, 1,
+             (128, 9, 1), (1, 1), b_mask=False, a_grouped=True)
+    # The weight-gradient GEMMs that one block per output tile left on 1-9
+    # SMs: split-K.  conv1's and conv2's (conv2 with all-live masks, as in
+    # the step), and dw1's, 32 groups of (9 x 100,352) @ (100,352 x 1) with
+    # A through _group_patches' strides (the group-major k path).
+    run_gemm("", "conv1 WG 27x401408x64", 1, 27, 401408, 64,
+             (128, 128, 128), None, sigma=False, a_t=True, out_mask=False)
+    run_gemm("", "conv2 WG 576x401408x64 all live", 1, 576, 401408, 64,
+             (128, 128, 128), None, live=1.0, sigma=False, a_t=True,
+             out_mask=False, reduce_row=True)
+    run_gemm("", "dw1 WG 32x(9x100352x1) block 9x128x1", 32, 9, 100352, 1,
+             (9, 128, 1), None, sigma=False, a_grouped_t=True,
+             out_mask=False)
 
     # K5 bitmap_scan: conv0's input (the image, gran (1, 1)), the head's
     # input (gran (128, 128)) and a ragged signed case; bits exact.  The
@@ -383,6 +469,83 @@ def kernel_phase(dev):
         got = ops.sparse_gemm(a, b, (om, am, bmk), spec, epilogue_mult=mult)
         check(torch.equal(got, k6),
               f"K6 is bit-equal to sparse_gemm(G=1, {schedule})")
+
+    # K6/K7 at a split shape (VGG16 conv4's WG, 9 output tiles): the same
+    # plan as sparse_gemm(G=1), so the same bits.
+    m, k, n = 1152, 100352, 128
+    splits = mm.split_plan(1, m, k, n, block)
+    a, b, om, am, bmk, mult = gemm_case(1, m, k, n, block)
+    a, b, om, am, bmk, mult = a[0], b[0], om[0], am[0], bmk[0], mult[0]
+    kw = dict(bm=bm, bk=bk, bn=bn, epilogue_mult=mult)
+    flops, bytes_ = gemm_traffic((1, m, k, n), block, om[None], am[None],
+                                 bmk[None], mult, None)
+    lib_ms = time_ms(lambda: torch.matmul(a, b))
+    k6 = mm.masked_matmul_kernel(a, b, om, am, bmk, **kw)
+    want = mm.masked_matmul_plain(a, b, om, am, bmk, **kw)
+    torch.cuda.synchronize()
+    err, rel, ok = rel_err(k6, want)
+    case = f"conv4 WG 1152x100352x128, {splits} splits"
+    report("masked_matmul_2d", case, err, ok,
+           time_ms(lambda: mm.masked_matmul_kernel(a, b, om, am, bmk, **kw)),
+           time_ms(lambda: mm.masked_matmul_plain(a, b, om, am, bmk, **kw)),
+           lib_ms, bytes_, flops, rel, {"splits": splits})
+    ii, jj, n_live = qb.build_queue_kernel(om, capacity=om.numel())
+    k7 = mm.compact_masked_matmul_kernel(a, b, ii, jj, n_live, am, bmk, **kw)
+    want7 = mm.compact_masked_matmul_plain(a, b, ii, jj, n_live, am, bmk,
+                                           **kw)
+    torch.cuda.synchronize()
+    err, rel, ok = rel_err(k7, want7)
+    report("compact_masked_matmul_2d", case, err, ok,
+           time_ms(lambda: mm.compact_masked_matmul_kernel(
+               a, b, ii, jj, n_live, am, bmk, **kw)),
+           time_ms(lambda: mm.compact_masked_matmul_plain(
+               a, b, ii, jj, n_live, am, bmk, **kw)),
+           lib_ms, bytes_, flops, rel, {"splits": splits})
+    nl = int(n_live[0])
+    scattered = torch.zeros_like(k6)
+    scattered.view(m // bm, bm, n // bn, bn)[
+        ii[:nl].long(), :, jj[:nl].long(), :] = k7[:nl]
+    check(splits > 1 and torch.equal(scattered, k6),
+          f"K7 scattered is bit-equal to K6 at {splits} splits")
+    for schedule in ("compact", "predicated"):
+        spec = ops.GemmSpec(block=block, schedule=schedule,
+                            epilogue=("sigma_prime",))
+        got = ops.sparse_gemm(a, b, (om, am, bmk), spec, epilogue_mult=mult)
+        check(torch.equal(got, k6),
+              f"K6 is bit-equal to sparse_gemm(G=1, {schedule}) at "
+              f"{splits} splits")
+
+    # A capacity-limited compact dispatch counts fallback:queue_overflow on
+    # the card exactly as on the CPU, with no host sync in the dispatch.
+    g, m, k, n, block = 2, 333, 250, 77, (8, 16, 8)
+    a, b, om, am, bmk, mult = gemm_case(g, m, k, n, block)
+    spec = ops.GemmSpec(block=block, groups=g, schedule="compact",
+                        epilogue=("sigma_prime", "bitmap_emit"),
+                        emit_gran=(2, 4),
+                        max_active_blocks=int(om.sum()) // 2)
+    counted = {}
+    for where in ("cpu", "cuda"):
+        stats.reset()
+        args = [x.to(where) for x in (a, b, om, am, bmk, mult)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = ops.sparse_gemm(*args[:2], tuple(args[2:5]), spec,
+                                  epilogue_mult=args[5])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counted[where] = (stats.counts(), res)
+    stats.reset()
+    (c_cpu, (o_cpu, b_cpu)), (c_gpu, (o_gpu, b_gpu)) = \
+        counted["cpu"], counted["cuda"]
+    print(f"overflowing dispatch counts: cpu {c_cpu} card {c_gpu}",
+          flush=True)
+    check(c_gpu == c_cpu and c_gpu.get("fallback:queue_overflow") == 1,
+          "fallback:queue_overflow counted once on the card, as on the CPU, "
+          "with no host sync in the dispatch")
+    err, _, ok = rel_err(o_gpu.cpu(), o_cpu)
+    check(ok and torch.equal(b_gpu.cpu(), b_cpu),
+          "the overflowing dispatch matches the CPU run")
     return rows
 
 
@@ -549,6 +712,9 @@ def launch_contract(rec, scenario, tag):
           f"{tag}: compact_gemm launches == gemm:compact:*")
     check(launches.get("predicated_gemm", 0) == _sum(c, "gemm:predicated:"),
           f"{tag}: predicated_gemm launches == gemm:predicated:*")
+    check(launches.get("splitk_reduce", 0) <= _sum(c, "gemm:compact:")
+          + _sum(c, "gemm:predicated:"),
+          f"{tag}: splitk_reduce launches <= K3/K4 dispatches")
     if scenario == "IN_OUT_WR":
         check(c.get("queue:prefix_sum", 0) == _sum(c, "gemm:compact:") > 0,
               f"{tag}: queue:prefix_sum == gemm:compact:*")
@@ -583,10 +749,10 @@ SCHEDULE = {"IN_OUT_WR": "compact", "IN_OUT": "predicated"}
 # Each path's kernels: the main-path run must launch every one of them.
 PATHS = {"vgg16": (vgg16_contract, False, None,
                    ("relu_encode", "queue_builder", "compact_gemm",
-                    "predicated_gemm")),
+                    "predicated_gemm", "splitk_reduce")),
          "mobilenet": (mobilenet_contract, True, 1,
                        ("relu_encode", "queue_builder", "compact_gemm",
-                        "predicated_gemm", "bitmap_scan"))}
+                        "predicated_gemm", "splitk_reduce", "bitmap_scan"))}
 
 
 def end_to_end(dev, net, image_size=224, width=1.0, num_classes=1000,
@@ -767,6 +933,7 @@ def main():
                                  "src/repro/kernels/queue_builder.py:122"),
                "compact_gemm": (mm_cu, f"{mm_py}:492"),
                "predicated_gemm": (mm_cu, f"{mm_py}:347"),
+               "splitk_reduce": (mm_cu, f"{mm_py}:492"),
                "bitmap_scan": ("src/repro_torch/csrc/bitmap_scan.cu",
                                "src/repro/kernels/bitmap_scan.py:61"),
                "masked_matmul_2d": (mm_cu, f"{mm_py}:172"),

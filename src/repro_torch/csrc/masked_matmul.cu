@@ -1,50 +1,60 @@
 // Grouped block-sparse GEMM with the sigma-prime / bitmap-emit epilogue,
-// for Hopper (sm_90a).  One device function serves both schedules:
+// for Hopper (sm_90a).  One launcher serves every schedule:
 //
 //   compact    replaces repro/kernels/masked_matmul.py:_gmm_compact_kernel
-//              (grouped_compact_masked_matmul_kernel): one block per queue
-//              slot s < min(n_live, cap); the slot names the output tile.
+//              (grouped_compact_masked_matmul_kernel): the tiles named by
+//              queue slots s < min(n_live, cap).
 //   predicated replaces repro/kernels/masked_matmul.py:_gmm_kernel
-//              (grouped_masked_matmul_kernel): one block per (g, i, j) tile
-//              of the full grid; a tile whose out_mask bit is 0 keeps the
-//              zeros the caller filled in.  At G = 1 it also replaces the
-//              2-D _mm_kernel / _mm_epilogue_kernel (masked_matmul_kernel).
+//              (grouped_masked_matmul_kernel): every (g, i, j) tile whose
+//              out_mask bit is set; a dead tile keeps the zeros the caller
+//              filled in.  At G = 1 it also replaces the 2-D _mm_kernel /
+//              _mm_epilogue_kernel (masked_matmul_kernel).
 //   compact_out replaces the 2-D _mm_compact_kernel /
 //              _mm_compact_epilogue_kernel (compact_masked_matmul_kernel):
-//              G = 1, one block per queue slot s < n_active, and the tile
-//              goes to slot s of an (S, bm, bn) compacted output; slots
-//              s >= n_active keep the caller's zeros.
+//              G = 1, the tile of queue slot s < n_active goes to slot s of
+//              an (S, bm, bn) compacted output; the other slots keep zeros.
 //
-// For its tile (g, i, j) a block computes
+// For its tile (g, i, j) every path computes
 //   out = sum over k blocks with a_mask[g,i,kb] && b_mask[g,kb,j] of A.B,
 // in full float32 FMA (no TF32, no tensor cores), then the epilogue of
 // repro/kernels/masked_matmul.py:_apply_epilogue: out *= mult (sigma-prime)
 // and, over the post-sigma-prime values, bits[g, m/er, n/ec] = any(|out|>0).
+// Only live tiles are written, straight to their (g, i, j) place in the
+// caller's zero-filled output (no compacted buffer, no scatter); bits are
+// plain stores of 1 (all writers agree).  Queue overflow is decided on the
+// device: the compact launch exits when n_live > cap and the predicated
+// fallback when n_live <= cap, so the caller launches both with no sync.
 //
-// Bound on the H100: operations.  Work is 2 * (live tile rows) * (live tile
-// cols) * (live k-block length) float32 FLOPs against 67 TFLOP/s outside the
-// tensor cores.  Design:
-//   * A mask tile is not a hardware tile (blocks such as (8, 16, 8) and
-//     ragged edges occur).  A block owns a 128 x 128 register tile (256
-//     threads, 8 x 8 outputs each); gridDim.y covers a mask tile larger than
-//     that, and a smaller one leaves rows/cols idle.  Every load and store is
-//     bounds-checked against the mask tile and M/K/N, so the caller passes
-//     unpadded operands.
-//   * K advances in chunks of 16 through shared memory; the operand masks are
-//     read once per bk block and a dead block is skipped before any load.
-//   * A and B are taken with explicit strides, so the weight-gradient GEMM
-//     reads patches^T and the head GEMMs read x^T without a transposed copy.
-//     The shared-memory fill follows whichever stride is 1.
-//   * Output tiles and their bits are written straight to their (g, i, j)
-//     place in the caller's zero-filled output: there is no compacted buffer
-//     and no scatter.  Bits are set by plain stores of 1 (all writers agree),
-//     so no atomics are needed.
-//   * Queue overflow is decided on the device: with a live-count pointer the
-//     compact launch exits when n_live > cap and the predicated launch exits
-//     when n_live <= cap, so the caller launches both without a host sync.
-// One block per output tile leaves a weight-gradient GEMM with few output
-// tiles (conv2: 5 tiles, K = 401,408) on a handful of SMs; split-K is the
-// expected first redesign.
+// The caller (kernels/masked_matmul.py) picks a path and a split count from
+// the shape (G, M, K, N) and the mask block alone, never from the masks,
+// the capacity or n_live, so every schedule of one shape sums in one order:
+//   standard   a block owns a 128 x 128 register tile (256 threads, 8 x 8
+//              outputs each) and covers its mask tile with gridDim.y; K
+//              advances in chunks of 16 through shared memory; a dead k
+//              block is skipped before any load; A and B are read through
+//              their strides (patches^T needs no copy) and the shared-memory
+//              fill follows whichever stride is 1.  253 registers: one
+//              block per SM.
+//   group rows the degenerate per-group tiles of depthwise FP and dX GEMMs
+//              (K <= 64 / N, N <= 8, one column tile): a block takes 32
+//              groups, one per lane, because the group is the unit stride
+//              of A (patches regrouped by a view), and 64 or 32 rows; each
+//              thread owns the <= 8-wide output row of one (g, m).  B waits
+//              in shared memory; the output tile is staged there so that
+//              stores, the sigma-prime reads and the bits walk m coalesced.
+//              In compact mode a pre-pass marks the queue's tiles in a
+//              (G, Mb, Nb) membership bitmap, read in place of out_mask.
+//   group k    degenerate per-group weight gradients (one (M <= 32) x
+//              (N <= 8) tile per group, long K): 32 groups per block, the
+//              8 warps split each k block, and the 8 partial sums are added
+//              in warp order through shared memory.
+// Split-K: a grid smaller than two waves gets `splits` slices of whole mask
+// k blocks on blockIdx.z (split z takes k blocks
+// [z*Kb/S, (z+1)*Kb/S)).  Each slice writes its raw partial tile into a
+// (S, G, M, N) workspace; the reduce launch enumerates the tiles exactly as
+// the GEMM launch did, adds the S partials in split order (no atomics, so
+// the bits do not change from run to run), applies the epilogue and writes
+// the live tiles.
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,8 +63,16 @@ constexpr int TM = 128;
 constexpr int TN = 128;
 constexpr int TK = 16;
 constexpr int kThreads = 256;
+constexpr int kLanes = 32;                    // group-major: groups / block
+constexpr int kSubLanes = kThreads / kLanes;  // 8
+constexpr int kRowsMaxKN = 64;                // group rows: K * N of B
+constexpr int kRowsStage = 256;               // group rows: rows * N staged
+constexpr int kRowsMaxRows = 64;
+constexpr int kKMaxMN = 32;                   // group k: accumulators
+constexpr int kReduceRows = 8;                // reduce: rows per block
 
-enum { kPredicated = 0, kCompact = 1, kCompactOut = 2 };
+enum { kPredicated = 0, kCompact = 1, kCompactOut = 2 };   // mode
+enum { kStandard = 0, kGroupRows = 1, kGroupK = 2 };       // path
 
 struct GemmArgs {
   const float* A;
@@ -71,43 +89,91 @@ struct GemmArgs {
   const int* q_fi;     // (cap,) fused row g * Mb + i of each queue slot
   const int* q_jj;     // (cap,)
   const int* n_live;   // (1,) or null
+  float* ws;           // (splits, G, M, N) partial sums when splits > 1
+  int* member;         // (G, Mb, Nb) queue membership (group-major compact)
   int cap;
   int G, M, K, N;
   int bm, bk, bn, er, ec;
   int Mb, Kb, Nb, Mc, Nc;
   int nsub_n;
-  int mode;
+  int mode, path, splits, rows;
   int a_kcontig, b_ncontig;
 };
 
-// kOutCompact selects the compact_out mode at compile time, so the two
-// grouped modes compile to the code they had before it existed.  As a
-// runtime branch in the store loop it cut them to 176 registers and made
-// them ~19% slower (VGG16 step on an H100: 281 against 237 ms of GEMMs).
-template <bool kOutCompact>
+// The tile (g, i, j) of standard-path block t, or false when the block has
+// nothing to write: past n_live, a dead out_mask bit, or the schedule that
+// the overflow decision rules out.
+__device__ __forceinline__ bool tile_of(const GemmArgs& p, long long t,
+                                        int& g, int& i, int& j) {
+  if (p.mode != kPredicated) {
+    const int nl = *p.n_live;
+    // overflow: the predicated launch owns it (compact_out has none)
+    if (p.mode == kCompact && nl > p.cap) return false;
+    if (t >= nl) return false;
+    const int fi = p.q_fi[t];
+    g = fi / p.Mb;
+    i = fi - g * p.Mb;
+    j = p.q_jj[t];
+    return true;
+  }
+  if (p.n_live != nullptr && *p.n_live <= p.cap) return false;
+  if (p.out_mask != nullptr && p.out_mask[t] == 0) return false;
+  const long long per_g = (long long)p.Mb * p.Nb;
+  g = (int)(t / per_g);
+  const int rem = (int)(t - g * per_g);
+  i = rem / p.Nb;
+  j = rem - i * p.Nb;
+  return true;
+}
+
+// Group-major paths: does this launch run at all (the overflow decision)?
+__device__ __forceinline__ bool gm_runs(const GemmArgs& p) {
+  if (p.mode == kCompact) return *p.n_live <= p.cap;
+  return p.n_live == nullptr || *p.n_live > p.cap;
+}
+
+// Group-major paths: is tile (g, i, j) written?  Compact mode reads the
+// queue's membership bitmap, predicated mode the out_mask.
+__device__ __forceinline__ bool gm_live(const GemmArgs& p, int g, int i,
+                                        int j) {
+  const long long t = ((long long)g * p.Mb + i) * p.Nb + j;
+  if (p.mode == kCompact) return p.member[t] != 0;
+  return p.out_mask == nullptr || p.out_mask[t] != 0;
+}
+
+__device__ __forceinline__ bool kblock_live(const GemmArgs& p, int g, int i,
+                                            int j, int kb) {
+  if (p.a_mask != nullptr &&
+      p.a_mask[((long long)g * p.Mb + i) * p.Kb + kb] == 0)
+    return false;
+  return p.b_mask == nullptr ||
+         p.b_mask[((long long)g * p.Kb + kb) * p.Nb + j] != 0;
+}
+
+__device__ __forceinline__ void split_range(const GemmArgs& p, int z, int& lo,
+                                            int& hi) {
+  lo = (int)((long long)z * p.Kb / p.splits);
+  hi = (int)((long long)(z + 1) * p.Kb / p.splits);
+}
+
+// The epilogue of one output element: x mult, the store, the bitmap.
+__device__ __forceinline__ void emit(const GemmArgs& p, long long o, int g,
+                                     int m, int n, float v) {
+  if (p.mult != nullptr) v *= p.mult[o];
+  p.out[o] = v;
+  if (p.bits != nullptr && fabsf(v) > 0.f)
+    p.bits[((long long)g * p.Mc + m / p.er) * p.Nc + n / p.ec] = 1;
+}
+
+// The standard path.  kOutCompact selects the compact_out store and kSplit
+// the raw partial store at compile time: as a runtime branch in the store
+// loop, compact_out cut the grouped modes to 176 registers and made them
+// ~19% slower (VGG16 step on an H100: 281 against 237 ms of GEMMs).
+template <bool kOutCompact, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 masked_gemm_kernel(const GemmArgs p) {
   int g, i, j;
-  if (kOutCompact || p.mode == kCompact) {
-    const int nl = *p.n_live;
-    // overflow: the predicated launch owns it (compact_out has none)
-    if (!kOutCompact && nl > p.cap) return;
-    const int s = blockIdx.x;
-    if (s >= nl) return;
-    const int fi = p.q_fi[s];
-    g = fi / p.Mb;
-    i = fi - g * p.Mb;
-    j = p.q_jj[s];
-  } else {
-    if (p.n_live != nullptr && *p.n_live <= p.cap) return;
-    const long long t = blockIdx.x;
-    if (p.out_mask != nullptr && p.out_mask[t] == 0) return;
-    const long long per_g = (long long)p.Mb * p.Nb;
-    g = (int)(t / per_g);
-    const int rem = (int)(t - g * per_g);
-    i = rem / p.Nb;
-    j = rem - i * p.Nb;
-  }
+  if (!tile_of(p, blockIdx.x, g, i, j)) return;
   const int sub_i = blockIdx.y / p.nsub_n;
   const int sub_j = blockIdx.y - sub_i * p.nsub_n;
   const int m0 = i * p.bm + sub_i * TM;
@@ -115,6 +181,8 @@ masked_gemm_kernel(const GemmArgs p) {
   const int n0 = j * p.bn + sub_j * TN;
   const int n_end = min(min(j * p.bn + p.bn, n0 + TN), p.N);
   if (m0 >= m_end || n0 >= n_end) return;
+  int kb_lo = 0, kb_hi = p.Kb;
+  if (kSplit) split_range(p, blockIdx.z, kb_lo, kb_hi);
 
   __shared__ float As[TK][TM + 1];
   __shared__ float Bs[TK][TN + 1];
@@ -133,7 +201,7 @@ masked_gemm_kernel(const GemmArgs p) {
                            : nullptr;
   const int* bmk = p.b_mask ? p.b_mask + (long long)g * p.Kb * p.Nb + j
                             : nullptr;
-  for (int kb = 0; kb < p.Kb; ++kb) {
+  for (int kb = kb_lo; kb < kb_hi; ++kb) {
     // Uniform across the block: the whole block skips a dead k block.
     if (am != nullptr && am[kb] == 0) continue;
     if (bmk != nullptr && bmk[(long long)kb * p.Nb] == 0) continue;
@@ -191,6 +259,8 @@ masked_gemm_kernel(const GemmArgs p) {
     }
   }
 
+  float* ws = kSplit ? p.ws + (long long)blockIdx.z * p.G * p.M * p.N
+                     : nullptr;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int m = m0 + ty + 16 * r;
@@ -201,6 +271,10 @@ masked_gemm_kernel(const GemmArgs p) {
       if (n >= n_end) continue;
       const long long o = ((long long)g * p.M + m) * p.N + n;
       float v = acc[r][c];
+      if (kSplit) {
+        ws[o] = v;
+        continue;
+      }
       if (p.mult != nullptr) v *= p.mult[o];
       if (kOutCompact) {
         p.out[((long long)blockIdx.x * p.bm + (m - i * p.bm)) * p.bn +
@@ -214,22 +288,221 @@ masked_gemm_kernel(const GemmArgs p) {
   }
 }
 
-}  // namespace
+// Group-major rows: block (gc, mc) covers groups [32 gc, 32 gc + 32) and
+// rows [rows * mc, rows * (mc + 1)); blockIdx.x = mc * gchunks + gc, so
+// neighbouring blocks read neighbouring columns of the same patch rows.
+__global__ void __launch_bounds__(kThreads)
+group_rows_kernel(const GemmArgs p) {
+  if (!gm_runs(p)) return;
+  const int gchunks = (p.G + kLanes - 1) / kLanes;
+  const int gc = blockIdx.x % gchunks;
+  const int mc = blockIdx.x / gchunks;
+  const int g0 = gc * kLanes;
+  const int m0 = mc * p.rows;
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int sl = threadIdx.x / kLanes;
+  const int g = g0 + lane;
+  const int kn = p.K * p.N;
 
-// mode 0 = predicated (grid over every (g, i, j) tile), 1 = compact (grid
-// over the cap queue slots; needs q_fi, q_jj, n_live), 2 = compact_out (as
-// compact, at G = 1, into the (cap, bm, bn) compacted output).  With mode 0
-// and a non-null n_live the launch is the compact path's overflow fallback
-// and runs only when n_live > cap.  er/ec are ignored when bits is null.
-// Returns the cudaError_t of the launch.
-extern "C" int masked_gemm_launch(
-    const float* A, long long sAg, long long sAm, long long sAk,
-    const float* B, long long sBg, long long sBk, long long sBn, float* out,
-    int* bits, const int* out_mask, const int* a_mask, const int* b_mask,
-    const float* mult, const int* q_fi, const int* q_jj, const int* n_live,
-    int cap, int G, int M, int K, int N, int bm, int bk, int bn, int er,
-    int ec, int mode, void* stream) {
-  GemmArgs p;
+  __shared__ float Bs[kRowsMaxKN][kLanes + 1];
+  __shared__ float Os[kLanes][kRowsStage + 1];
+  __shared__ unsigned char Ls[kLanes][kRowsMaxRows];
+  for (int e = threadIdx.x; e < kLanes * kn; e += kThreads) {
+    const int l = e & (kLanes - 1);
+    const int q = e / kLanes;
+    const int k = q / p.N;
+    const int n = q - k * p.N;
+    const int gg = g0 + l;
+    Bs[q][l] = gg < p.G ? p.B[(long long)gg * p.sBg + (long long)k * p.sBk +
+                              (long long)n * p.sBn]
+                        : 0.f;
+  }
+  __syncthreads();
+
+  const float* Ag = p.A + (long long)g * p.sAg;
+  for (int r = sl; r < p.rows; r += kSubLanes) {
+    const int m = m0 + r;
+    const int i = m / p.bm;
+    const bool live = g < p.G && m < p.M && gm_live(p, g, i, 0);
+    Ls[lane][r] = live;
+    if (!live) continue;
+    float acc[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[n] = 0.f;
+    const float* Am = Ag + (long long)m * p.sAm;
+    for (int kb = 0; kb < p.Kb; ++kb) {
+      if (!kblock_live(p, g, i, 0, kb)) continue;
+      const int k_hi = min(kb * p.bk + p.bk, p.K);
+      for (int k = kb * p.bk; k < k_hi; ++k) {
+        const float a = Am[(long long)k * p.sAk];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          if (n < p.N) acc[n] = fmaf(a, Bs[k * p.N + n][lane], acc[n]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (n < p.N) Os[lane][r * p.N + n] = acc[n];
+  }
+  __syncthreads();
+
+  // Group g's output rows [m0, m0 + rows) are one contiguous span of
+  // rows * N floats: a warp writes 32 consecutive floats of one span, and
+  // reads mult there, along m.
+  const int span = min(p.rows, p.M - m0) * p.N;
+  const int spans = min(kLanes, p.G - g0);
+  for (int e = threadIdx.x; e < spans * span; e += kThreads) {
+    const int l = e / span;
+    const int f = e - l * span;
+    const int r = f / p.N;
+    if (!Ls[l][r]) continue;
+    const int gg = g0 + l;
+    const int m = m0 + r;
+    const int n = f - r * p.N;
+    emit(p, ((long long)gg * p.M + m) * p.N + n, gg, m, n, Os[l][f]);
+  }
+}
+
+// Group-major k: block (gc, z) covers groups [32 gc, 32 gc + 32), one
+// (M x N) tile each, over split z's k blocks; warp w takes k = w, w + 8, ...
+// of each k block.  kN is N rounded up to a power of two.
+template <int kN>
+__global__ void __launch_bounds__(kThreads)
+group_k_kernel(const GemmArgs p) {
+  if (!gm_runs(p)) return;
+  constexpr int kM = kKMaxMN / kN;
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int sl = threadIdx.x / kLanes;
+  const int g = blockIdx.x * kLanes + lane;
+  const bool live = g < p.G && gm_live(p, g, 0, 0);
+  int kb_lo = 0, kb_hi = p.Kb;
+  if (p.splits > 1) split_range(p, blockIdx.z, kb_lo, kb_hi);
+
+  float acc[kM][kN];
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int n = 0; n < kN; ++n) acc[m][n] = 0.f;
+  if (live) {
+    const float* Ag = p.A + (long long)g * p.sAg;
+    const float* Bg = p.B + (long long)g * p.sBg;
+    for (int kb = kb_lo; kb < kb_hi; ++kb) {
+      if (!kblock_live(p, g, 0, 0, kb)) continue;
+      const int k_hi = min(kb * p.bk + p.bk, p.K);
+      for (int k = kb * p.bk + sl; k < k_hi; k += kSubLanes) {
+        const float* Ak = Ag + (long long)k * p.sAk;
+        const float* Bk = Bg + (long long)k * p.sBk;
+        float b[kN];
+#pragma unroll
+        for (int n = 0; n < kN; ++n)
+          b[n] = n < p.N ? Bk[(long long)n * p.sBn] : 0.f;
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          const float a = m < p.M ? Ak[(long long)m * p.sAm] : 0.f;
+#pragma unroll
+          for (int n = 0; n < kN; ++n) acc[m][n] = fmaf(a, b[n], acc[m][n]);
+        }
+      }
+    }
+  }
+
+  __shared__ float red[kSubLanes][kLanes][kKMaxMN + 1];
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int n = 0; n < kN; ++n) red[sl][lane][m * kN + n] = acc[m][n];
+  __syncthreads();
+  if (sl != 0 || !live) return;
+  float* ws = p.splits > 1 ? p.ws + (long long)blockIdx.z * p.G * p.M * p.N
+                           : nullptr;
+  for (int m = 0; m < p.M; ++m) {
+    for (int n = 0; n < p.N; ++n) {
+      float v = red[0][lane][m * kN + n];
+#pragma unroll
+      for (int s = 1; s < kSubLanes; ++s) v += red[s][lane][m * kN + n];
+      const long long o = ((long long)g * p.M + m) * p.N + n;
+      if (ws != nullptr) {
+        ws[o] = v;
+      } else {
+        emit(p, o, g, m, n, v);
+      }
+    }
+  }
+}
+
+// Group-major compact pre-pass: member[fi[s], jj[s]] = 1 for the queue's
+// slots s < n_live, nothing on overflow.  member arrives zeroed.
+__global__ void queue_member_kernel(const GemmArgs p) {
+  const int nl = *p.n_live;
+  if (nl > p.cap) return;
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < nl;
+       s += gridDim.x * blockDim.x)
+    p.member[(long long)p.q_fi[s] * p.Nb + p.q_jj[s]] = 1;
+}
+
+// The split-K reduce: block (t, y, z) enumerates the tile that GEMM block
+// (t, y) wrote (queue slot, out_mask bit or membership bit) and takes
+// kReduceRows of its rows; it adds the partials in split order and applies
+// the epilogue.
+__global__ void __launch_bounds__(kThreads)
+splitk_reduce_kernel(const GemmArgs p) {
+  int g, i, j;
+  const long long t = blockIdx.x;
+  if (p.path != kStandard) {
+    if (!gm_runs(p)) return;
+    const long long per_g = (long long)p.Mb * p.Nb;
+    g = (int)(t / per_g);
+    const int rem = (int)(t - g * per_g);
+    i = rem / p.Nb;
+    j = rem - i * p.Nb;
+    if (!gm_live(p, g, i, j)) return;
+  } else if (!tile_of(p, t, g, i, j)) {
+    return;
+  }
+  const int sub_i = blockIdx.y / p.nsub_n;
+  const int sub_j = blockIdx.y - sub_i * p.nsub_n;
+  // blockIdx.z takes kReduceRows rows of the 128 x 128 piece.
+  const int tile_m0 = i * p.bm + sub_i * TM;
+  const int m0 = tile_m0 + blockIdx.z * kReduceRows;
+  const int m_end = min(min(min(i * p.bm + p.bm, tile_m0 + TM),
+                            m0 + kReduceRows), p.M);
+  const int n0 = j * p.bn + sub_j * TN;
+  const int n_end = min(min(j * p.bn + p.bn, n0 + TN), p.N);
+  if (m0 >= m_end || n0 >= n_end) return;
+  const int w = n_end - n0;
+  const int count = (m_end - m0) * w;
+  const long long slice = (long long)p.G * p.M * p.N;
+  for (int e = threadIdx.x; e < count; e += kThreads) {
+    const int m = m0 + e / w;
+    const int n = n0 + e % w;
+    const long long o = ((long long)g * p.M + m) * p.N + n;
+    const float* w0 = p.ws + o;
+    float v = w0[0];
+#pragma unroll 8
+    for (int s = 1; s < p.splits; ++s) v += w0[s * slice];
+    if (p.mode == kCompactOut) {
+      if (p.mult != nullptr) v *= p.mult[o];
+      p.out[(t * p.bm + (m - i * p.bm)) * p.bn + (n - j * p.bn)] = v;
+    } else {
+      emit(p, o, g, m, n, v);
+    }
+  }
+}
+
+int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
+int fill_args(GemmArgs& p, const float* A, long long sAg, long long sAm,
+              long long sAk, const float* B, long long sBg, long long sBk,
+              long long sBn, float* out, int* bits, const int* out_mask,
+              const int* a_mask, const int* b_mask, const float* mult,
+              const int* q_fi, const int* q_jj, const int* n_live, float* ws,
+              int* member, int cap, int G, int M, int K, int N, int bm,
+              int bk, int bn, int er, int ec, int mode, int path,
+              int splits) {
   p.A = A;
   p.sAg = sAg;
   p.sAm = sAm;
@@ -247,6 +520,8 @@ extern "C" int masked_gemm_launch(
   p.q_fi = q_fi;
   p.q_jj = q_jj;
   p.n_live = n_live;
+  p.ws = ws;
+  p.member = member;
   p.cap = cap;
   p.G = G;
   p.M = M;
@@ -264,27 +539,129 @@ extern "C" int masked_gemm_launch(
   p.Nc = (N + p.ec - 1) / p.ec;
   p.nsub_n = (bn + TN - 1) / TN;
   p.mode = mode;
+  p.path = path;
+  p.splits = splits;
   p.a_kcontig = sAk == 1;
   p.b_ncontig = sBn == 1;
+  p.rows = N > 0 ? min(kRowsMaxRows, kRowsStage / N) : 1;
+  if (mode != kPredicated &&
+      (q_fi == nullptr || q_jj == nullptr || n_live == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (mode == kCompactOut &&
+      (G != 1 || bits != nullptr || path != kStandard))
+    return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr) ||
+      (splits > 1 && path == kGroupRows) || (splits > 1 && p.Kb < splits))
+    return (int)cudaErrorInvalidValue;
+  if (path != kStandard && mode == kCompact && member == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (path == kGroupRows &&
+      (p.Nb != 1 || N > 8 || (long long)K * N > kRowsMaxKN))
+    return (int)cudaErrorInvalidValue;
+  if (path == kGroupK && (p.Mb != 1 || p.Nb != 1 || N > 8 ||
+                          (long long)M * pow2_at_least(N) > kKMaxMN))
+    return (int)cudaErrorInvalidValue;
+  if (path < kStandard || path > kGroupK) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+}  // namespace
+
+// The GEMM launch.  mode 0 = predicated (every (g, i, j) tile), 1 = compact
+// (the queue slots; needs q_fi, q_jj, n_live), 2 = compact_out (as
+// compact, at G = 1, into the (cap, bm, bn) compacted output).  With mode
+// 0 and a non-null n_live it is the compact path's overflow fallback and
+// runs only when n_live > cap.  path 0 = standard, 1 = group rows, 2 =
+// group k; group-major compact launches need a (G, Mb, Nb) int32 member
+// buffer (zeroed and filled here).  With splits > 1 the launch writes raw
+// partials into ws, (splits, G, M, N) float32, and masked_gemm_reduce_launch
+// with the same arguments finishes the product.  er/ec are ignored when
+// bits is null.  Returns the cudaError_t of the launch.
+extern "C" int masked_gemm_launch(
+    const float* A, long long sAg, long long sAm, long long sAk,
+    const float* B, long long sBg, long long sBk, long long sBn, float* out,
+    int* bits, const int* out_mask, const int* a_mask, const int* b_mask,
+    const float* mult, const int* q_fi, const int* q_jj, const int* n_live,
+    float* ws, int* member, int cap, int G, int M, int K, int N, int bm,
+    int bk, int bn, int er, int ec, int mode, int path, int splits,
+    void* stream) {
+  GemmArgs p;
+  const int bad = fill_args(p, A, sAg, sAm, sAk, B, sBg, sBk, sBn, out, bits,
+                            out_mask, a_mask, b_mask, mult, q_fi, q_jj,
+                            n_live, ws, member, cap, G, M, K, N, bm, bk, bn,
+                            er, ec, mode, path, splits);
+  if (bad) return bad;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (M == 0 || N == 0 || G == 0 || (mode != kPredicated && cap == 0))
+    return 0;
+  if (path != kStandard) {
+    const long long gchunks = (G + kLanes - 1) / kLanes;
+    if (mode == kCompact) {
+      const long long tiles = (long long)G * p.Mb * p.Nb;
+      const cudaError_t err = cudaMemsetAsync(member, 0, tiles * sizeof(int), st);
+      if (err != cudaSuccess) return (int)err;
+      const int blocks = (int)min((cap + kThreads - 1LL) / kThreads, 1024LL);
+      queue_member_kernel<<<blocks, kThreads, 0, st>>>(p);
+    }
+    if (path == kGroupRows) {
+      const long long blocks = gchunks * ((M + p.rows - 1) / p.rows);
+      if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+      group_rows_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(p);
+    } else {
+      const dim3 grid((unsigned)gchunks, 1, (unsigned)splits);
+      switch (pow2_at_least(N)) {
+        case 1: group_k_kernel<1><<<grid, kThreads, 0, st>>>(p); break;
+        case 2: group_k_kernel<2><<<grid, kThreads, 0, st>>>(p); break;
+        case 4: group_k_kernel<4><<<grid, kThreads, 0, st>>>(p); break;
+        default: group_k_kernel<8><<<grid, kThreads, 0, st>>>(p); break;
+      }
+    }
+    return (int)cudaGetLastError();
+  }
   const long long nsub = (long long)((bm + TM - 1) / TM) * p.nsub_n;
   const long long tiles =
       mode == kPredicated ? (long long)G * p.Mb * p.Nb : (long long)cap;
-  if (tiles == 0 || M == 0 || N == 0) return 0;
-  if (tiles > 0x7fffffffLL || nsub > 65535) {
+  if (tiles > 0x7fffffffLL || nsub > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  }
-  if (mode != kPredicated && (q_fi == nullptr || q_jj == nullptr ||
-                              n_live == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (mode == kCompactOut && (G != 1 || bits != nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  dim3 grid((unsigned)tiles, (unsigned)nsub);
-  if (mode == kCompactOut) {
-    masked_gemm_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+  const dim3 grid((unsigned)tiles, (unsigned)nsub, (unsigned)splits);
+  if (splits > 1) {
+    masked_gemm_kernel<false, true><<<grid, kThreads, 0, st>>>(p);
+  } else if (mode == kCompactOut) {
+    masked_gemm_kernel<true, false><<<grid, kThreads, 0, st>>>(p);
   } else {
-    masked_gemm_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+    masked_gemm_kernel<false, false><<<grid, kThreads, 0, st>>>(p);
   }
+  return (int)cudaGetLastError();
+}
+
+// The split-K reduce, launched after masked_gemm_launch with the same
+// arguments (splits > 1): the partials in ws summed in split order, the
+// epilogue, the live tiles written.
+extern "C" int masked_gemm_reduce_launch(
+    const float* A, long long sAg, long long sAm, long long sAk,
+    const float* B, long long sBg, long long sBk, long long sBn, float* out,
+    int* bits, const int* out_mask, const int* a_mask, const int* b_mask,
+    const float* mult, const int* q_fi, const int* q_jj, const int* n_live,
+    float* ws, int* member, int cap, int G, int M, int K, int N, int bm,
+    int bk, int bn, int er, int ec, int mode, int path, int splits,
+    void* stream) {
+  GemmArgs p;
+  const int bad = fill_args(p, A, sAg, sAm, sAk, B, sBg, sBk, sBn, out, bits,
+                            out_mask, a_mask, b_mask, mult, q_fi, q_jj,
+                            n_live, ws, member, cap, G, M, K, N, bm, bk, bn,
+                            er, ec, mode, path, splits);
+  if (bad) return bad;
+  if (splits < 2) return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0 || G == 0 || (mode != kPredicated && cap == 0))
+    return 0;
+  const long long nsub = (long long)((bm + TM - 1) / TM) * p.nsub_n;
+  const long long tiles = (path == kStandard && mode != kPredicated)
+                              ? (long long)cap
+                              : (long long)G * p.Mb * p.Nb;
+  if (tiles > 0x7fffffffLL || nsub > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tiles, (unsigned)nsub,
+                  (unsigned)((min(bm, TM) + kReduceRows - 1) / kReduceRows));
+  splitk_reduce_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

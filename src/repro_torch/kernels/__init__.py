@@ -34,6 +34,7 @@ def launch_counts() -> dict:
         "bitmap_scan": bitmap_scan.launches,
         "masked_matmul_2d": masked_matmul.masked_2d_launches,
         "compact_masked_matmul_2d": masked_matmul.compact_2d_launches,
+        "splitk_reduce": masked_matmul.splitk_reduce_launches,
     }
 
 
@@ -45,3 +46,4 @@ def reset_launch_counts() -> None:
     bitmap_scan.launches = 0
     masked_matmul.masked_2d_launches = 0
     masked_matmul.compact_2d_launches = 0
+    masked_matmul.splitk_reduce_launches = 0

@@ -34,13 +34,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of the launchers; every one returns its cudaError_t.
+_GEMM = [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
     "bitmap_scan_launch": [_P, _L, _P, _I, _I, _I, _I, _P],
     "relu_encode_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "queue_builder_launch": [_P, _I, _I, _I, _P, _P, _P, _P],
-    "masked_gemm_launch": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _P],
+    "masked_gemm_launch": _GEMM,
+    "masked_gemm_reduce_launch": _GEMM,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -7,24 +7,49 @@ Source note.  K3 replaces the TPU kernel ``repro/kernels/masked_matmul.py``
 replaces ``grouped_masked_matmul_kernel`` → ``_gmm_kernel``.  For a tile
 (g, i, j) both compute Σ over k blocks with a_mask ∧ b_mask of A·B in f32,
 then the ``_apply_epilogue`` stages: ×σ′ multiplier, and the any(|out| > 0)
-bitmap of the post-σ′ values per (er, ec) cell.  Both are one CUDA kernel,
-``csrc/masked_matmul.cu``, in two grid modes.  On the H100 they are bound
-by operations (live-tile f32 FLOPs; full f32 FMA, no TF32 or tensor cores
-in this version).  A block owns a 128×128 register tile and covers its
-mask tile with it; A and B are read through their strides (so transposed
-operands need no copy); tiles and bits are written straight to their
-(g, i, j) place in a zero-filled output, so the TPU path's compacted buffer,
-its scatter and the padded operand copies disappear; queue overflow is
-decided on the device (see ``csrc/masked_matmul.cu``).
+bitmap of the post-σ′ values per (er, ec) cell.  Both are one CUDA
+launcher, ``csrc/masked_matmul.cu``, in two grid modes: compact (the queue
+slots s < n_live) and predicated (every out_mask tile).  Tiles and bits go
+straight to their (g, i, j) place in a zero-filled output, operands are
+read through their strides (so transposed operands need no copy), and
+queue overflow is decided on the device: the compact launch exits when
+n_live > capacity, the predicated fallback when it is not.  Full f32 FMA,
+no TF32 or tensor cores; the kernels are bound by operations on the dense
+GEMMs and by bytes on the degenerate depthwise ones.
+
+The wrapper picks a path and a split count from the shape and the mask
+block alone (``gemm_path``, ``split_plan``; never from the masks, the
+capacity or the live count, so every schedule of one shape sums in one
+order):
+
+  * standard: a block owns a 128×128 register tile and covers its mask
+    tile with it;
+  * group rows, for the degenerate per-group FP and dX tiles of depthwise
+    convs (N ≤ 8 columns in one tile, K·N ≤ 64): 32 groups per block, one
+    per lane, since the group is the unit stride of the regrouped patches;
+    each thread owns one (g, m) output row, and the tile is staged through
+    shared memory so that stores, σ′ and bits walk m.  In compact mode a
+    pre-pass marks the queue's tiles in a membership bitmap;
+  * group k, for the degenerate per-group weight gradients (one M × N tile
+    per group, M·N⁺ ≤ 32): 32 groups per block, the 8 warps split each k
+    block and their sums are added in warp order;
+  * split-K: a grid smaller than two waves of the H100 (a wave is the
+    blocks the 132 SMs hold at once) is split along K into slices of whole
+    mask k blocks (``split_bounds``), as many as fit in three waves, each of
+    at least ``MIN_KBLOCKS_PER_SPLIT``.  Each slice writes raw partial sums into a
+    (splits, G, M, N) workspace, and a second launch, the reduce, adds them
+    in split order (no atomics: the same bits on every run), applies the
+    epilogue and writes the live tiles it enumerates exactly as the GEMM
+    launch did.  It is counted on ``splitk_reduce_launches``.
 
 K6 and K7 replace the 2-D TPU kernels ``masked_matmul_kernel``
 (``_mm_kernel``, ``_mm_epilogue_kernel``) and ``compact_masked_matmul_kernel``
 (``_mm_compact_kernel``, ``_mm_compact_epilogue_kernel``).  No training path
 runs them: as in the reference they are the frozen 2-D oracle that pins
-``sparse_gemm(G=1)``.  They are the same CUDA kernel at G = 1, K6 in
-predicated mode and K7 in a compacted-output mode where block s writes its
-tile to slot s of an (S, bm, bn) buffer, slots s ≥ n_active staying zero;
-like K3/K4 they are bound by operations.
+``sparse_gemm(G=1)``.  They are the same launcher at G = 1 (always the
+standard path, split as ``split_plan`` says), K6 in predicated mode and K7
+in a compacted-output mode where the tile of slot s goes to slot s of an
+(S, bm, bn) buffer, slots s ≥ n_active staying zero.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors.  Both forms write into a caller-provided zero-filled
@@ -45,6 +70,7 @@ compact_launches = 0
 predicated_launches = 0
 masked_2d_launches = 0
 compact_2d_launches = 0
+splitk_reduce_launches = 0
 
 _PREDICATED, _COMPACT, _COMPACT_OUT = 0, 1, 2
 
@@ -195,20 +221,129 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _launch(mode, a, b, out, bits, out_mask, a_mask, b_mask, mult, fi, jj,
-            n_live, capacity, block, emit_gran):
+# ---------------------------------------------------------------------------
+# The launch plan: a pure function of the shape and the mask block
+# ---------------------------------------------------------------------------
+
+SM_COUNT = 132                 # H100 SXM
+MIN_KBLOCKS_PER_SPLIT = 2
+REGISTER_TILE = 128            # the standard path's block tile edge
+GROUP_LANES = 32               # groups per group-major block
+ROWS_MAX_KN = 64               # group rows: K·N of B held in shared memory
+K_MAX_MN = 32                  # group k: accumulators per thread
+
+STANDARD, GROUP_ROWS, GROUP_K = 0, 1, 2
+# Blocks of each split path that one SM holds at once (registers: 253 per
+# thread on the standard path, 64 on group k; 256 threads a block).
+RESIDENT = {STANDARD: 1, GROUP_K: 4}
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def gemm_path(g: int, m: int, k: int, n: int,
+              block: Tuple[int, int, int]) -> int:
+    """Which kernel path a (G, M, K, N) request on ``block`` takes:
+    ``GROUP_ROWS`` for degenerate per-group FP/dX tiles (a few columns, one
+    column tile, K·N ≤ 64), ``GROUP_K`` for degenerate per-group weight
+    gradients (one M × N tile per group with M·N⁺ ≤ 32, N⁺ the next power
+    of two), else ``STANDARD`` (the 128×128 register tile).  G = 1 always
+    takes ``STANDARD``, so K6/K7 and ``sparse_gemm(G=1)`` share one path."""
+    mb, _, nb = grid_shape((m, k, n), block)
+    if g < 2 or n > 8 or nb != 1:
+        return STANDARD
+    if k * n <= ROWS_MAX_KN:
+        return GROUP_ROWS
+    if mb == 1 and m * _pow2_at_least(n) <= K_MAX_MN:
+        return GROUP_K
+    return STANDARD
+
+
+def split_plan(g: int, m: int, k: int, n: int,
+               block: Tuple[int, int, int]) -> int:
+    """Split-K slices for a (G, M, K, N) request on ``block``.  A wave is
+    what the card holds at once (``SM_COUNT`` × ``RESIDENT`` blocks).  A
+    grid of two waves or more keeps one slice (so does the group rows path,
+    whose K is short); a smaller one gets as many slices as fit in three
+    waves, so that the last wave is nearly full, each of at least
+    ``MIN_KBLOCKS_PER_SPLIT`` whole k blocks.  Never a function of the
+    masks, the capacity or the live count, so every schedule of one shape
+    sums in one order."""
+    path = gemm_path(g, m, k, n, block)
+    if path == GROUP_ROWS:
+        return 1
+    wave = SM_COUNT * RESIDENT[path]
+    blocks = grid_blocks(g, m, k, n, block)
+    if blocks >= 2 * wave:
+        return 1
+    kb = grid_shape((m, k, n), block)[1]
+    return max(1, min(3 * wave // blocks, kb // MIN_KBLOCKS_PER_SPLIT))
+
+
+def grid_blocks(g: int, m: int, k: int, n: int,
+                block: Tuple[int, int, int]) -> int:
+    """Blocks of the predicated GEMM launch before any split: 32 groups by
+    ``min(64, 256 // N)`` rows (group rows), 32 groups (group k), or a
+    block per 128×128 piece of every (g, i, j) tile (standard)."""
+    bm, _, bn = block
+    mb, _, nb = grid_shape((m, k, n), block)
+    path = gemm_path(g, m, k, n, block)
+    gchunks = -(-g // GROUP_LANES)
+    if path == GROUP_ROWS:
+        return gchunks * -(-m // min(64, 256 // n))
+    if path == GROUP_K:
+        return gchunks
+    return g * mb * nb * -(-bm // REGISTER_TILE) * -(-bn // REGISTER_TILE)
+
+
+def split_bounds(kb: int, splits: int):
+    """The k-block range [lo, hi) of each split, as the kernel takes it."""
+    return [(z * kb // splits, (z + 1) * kb // splits)
+            for z in range(splits)]
+
+
+def launch_args(mode, a, b, out, bits, out_mask, a_mask, b_mask, mult, fi,
+                jj, n_live, capacity, block, emit_gran):
+    """The C arguments of one GEMM launch and of its reduce launch, with
+    the split count and the buffers they point at (workspace, membership),
+    which must outlive the launches."""
     g, m, k = a.shape
     n = b.shape[2]
     er, ec = emit_gran if emit_gran is not None else (1, 1)
+    path = gemm_path(g, m, k, n, block)
+    splits = split_plan(g, m, k, n, block)
+    ws = None if splits == 1 else torch.empty(
+        (splits, g, m, n), dtype=torch.float32, device=a.device)
+    member = None
+    if path != STANDARD and mode == _COMPACT:
+        ni, _, nj = grid_shape((m, k, n), block)
+        member = torch.empty(g * ni * nj, dtype=torch.int32, device=a.device)
+    args = (a.data_ptr(), a.stride(0), a.stride(1), a.stride(2),
+            b.data_ptr(), b.stride(0), b.stride(1), b.stride(2),
+            out.data_ptr(), _ptr(bits), _ptr(out_mask), _ptr(a_mask),
+            _ptr(b_mask), _ptr(mult), _ptr(fi), _ptr(jj), _ptr(n_live),
+            _ptr(ws), _ptr(member), capacity, g, m, k, n, *block, er, ec,
+            mode, path, splits, _build.stream_handle(a.device))
+    return args, splits, (ws, member)
+
+
+def _launch(mode, a, b, out, bits, out_mask, a_mask, b_mask, mult, fi, jj,
+            n_live, capacity, block, emit_gran):
+    """One GEMM launch, and its reduce launch when the plan splits K."""
+    global splitk_reduce_launches
+    args, splits, _buffers = launch_args(
+        mode, a, b, out, bits, out_mask, a_mask, b_mask, mult, fi, jj,
+        n_live, capacity, block, emit_gran)
     lib = _build.load()
-    err = lib.masked_gemm_launch(
-        a.data_ptr(), a.stride(0), a.stride(1), a.stride(2),
-        b.data_ptr(), b.stride(0), b.stride(1), b.stride(2),
-        out.data_ptr(), _ptr(bits), _ptr(out_mask), _ptr(a_mask),
-        _ptr(b_mask), _ptr(mult), _ptr(fi), _ptr(jj), _ptr(n_live),
-        capacity, g, m, k, n, *block, er, ec, mode,
-        _build.stream_handle(a.device))
-    _build.check(err, "masked_gemm")
+    _build.check(lib.masked_gemm_launch(*args), "masked_gemm")
+    if splits > 1:
+        _build.check(lib.masked_gemm_reduce_launch(*args),
+                     "masked_gemm split-K reduce")
+        splitk_reduce_launches += 1
 
 
 def grouped_masked_matmul_kernel(

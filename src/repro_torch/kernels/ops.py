@@ -16,9 +16,10 @@ What differs from the reference on the card: the kernels bounds-check
 M/K/N and write tiles straight to their place, so there is no padding of
 operands and no scatter; the compact path's overflow fallback is decided on
 the device (both launches read ``n_live``; one of them exits) instead of by
-``lax.cond``.  ``fallback:queue_overflow`` is therefore counted only where
-``n_live`` is already on the host (CPU tensors).  The ``dense`` schedule is
-plain torch, as it is XLA (not Pallas) in the reference.
+``lax.cond``, and ``fallback:queue_overflow`` is added on the device into a
+counter of ``stats`` that is folded in when the counts are read (no host
+sync per GEMM).  The ``dense`` schedule is plain torch, as it is XLA (not
+Pallas) in the reference.
 
 Every dispatch is counted under ``gemm:<schedule>:<g>`` (plus ``emit:grad``
 per emitted bitmap).
@@ -240,9 +241,13 @@ def _dispatch(a, b, masks: GemmMasks, spec: GemmSpec, mult):
     if cap < total:
         # The queue may overflow.  Both launches read n_live on the device:
         # the compact one exits when n_live > cap, the predicated fallback
-        # when n_live <= cap — exact always, and no host sync.
-        if n_live.device.type == "cpu" and int(n_live[0]) > cap:
-            stats.record("fallback:queue_overflow")
+        # when n_live <= cap — exact always, and no host sync; on the card
+        # the overflow count stays on the device until stats are read.
+        if n_live.device.type == "cpu":
+            if int(n_live[0]) > cap:
+                stats.record("fallback:queue_overflow")
+        else:
+            stats.record_on_device("fallback:queue_overflow", n_live > cap)
         out, bits = masked_matmul.grouped_masked_matmul_kernel(
             a, b, om, am, bmask, block=spec.block, epilogue_mult=mult,
             emit_gran=emit, out=out, bits=bits, n_live=n_live, capacity=cap)

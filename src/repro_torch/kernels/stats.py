@@ -13,9 +13,7 @@ string, so a test can compare the two packages' count dicts directly:
                                                   epilogue
   fallback:queue_overflow                         compact dispatches whose
                                                   live count exceeded the
-                                                  queue capacity, counted
-                                                  only where that count is
-                                                  already on the host
+                                                  queue capacity
   registry:hit / registry:miss                    grad-bitmap registry
                                                   lookups
 
@@ -23,6 +21,10 @@ PyTorch runs eagerly, so one forward+backward records exactly one step's
 events.  The lifecycle scopes become ``torch.profiler.record_function``
 ranges under the reference's ``repro:<kind>[:<detail>]:<seq>`` and
 ``layer:<name>`` names, so a profiler trace carries the same tags.
+
+An event decided on the device (a queue overflow on the card) is added
+into a device-resident counter with no host sync (``record_on_device``) and
+folded into the counts when they are read: that read is the one sync.
 
 Kernel launch counts are not stats keys: each kernel wrapper keeps its own
 plain integer (``launches``).
@@ -32,11 +34,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 _COUNTS: "collections.Counter[str]" = collections.Counter()
+# Device-resident counters of ``record_on_device``, by (key, device).
+_PENDING: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 # Pre-redesign per-GEMM key heads → the normalized family.
 _KEY_ALIASES = {"mm": "gemm", "gmm": "gemm", "grouped_mm": "gemm"}
@@ -52,16 +56,37 @@ def record(kind: str) -> None:
     _COUNTS[_normalize(kind)] += 1
 
 
+def record_on_device(kind: str, flag: torch.Tensor) -> None:
+    """Count the set elements of the boolean or 0/1 tensor ``flag`` under
+    ``kind``, on ``flag``'s device and without a host sync; ``counts`` and
+    ``total`` fold the sum in when they are read."""
+    key = (_normalize(kind), flag.device)
+    inc = flag.to(torch.int32).sum()
+    prev = _PENDING.get(key)
+    _PENDING[key] = inc if prev is None else prev.add_(inc)
+
+
+def _fold() -> None:
+    for (kind, _), count in list(_PENDING.items()):
+        n = int(count)
+        if n:
+            _COUNTS[kind] += n
+    _PENDING.clear()
+
+
 def reset() -> None:
     _COUNTS.clear()
+    _PENDING.clear()
 
 
 def counts() -> Dict[str, int]:
+    _fold()
     return dict(_COUNTS)
 
 
 def total(what: str = "") -> int:
     """Total computations, optionally filtered by the ``:<what>`` suffix."""
+    _fold()
     return sum(v for k, v in _COUNTS.items()
                if not what or k.endswith(":" + what))
 

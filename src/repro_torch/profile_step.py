@@ -21,6 +21,7 @@ import bisect
 import collections
 import json
 import os
+import re
 import tempfile
 import time
 
@@ -34,15 +35,19 @@ from repro_torch.models.cnn import NETWORKS, param_leaves
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# The device functions of csrc/masked_matmul.cu.
+_GEMM_KERNELS = ("masked_gemm_kernel", "group_rows_kernel", "group_k_kernel",
+                 "queue_member_kernel", "splitk_reduce_kernel")
 
 
 def summarize_trace(events: list) -> dict:
     """Device time by kernel name and by layer from chrome-trace events.
 
     Returns ``{"busy_ms", "kernels": [(name, ms, calls)], "layers":
-    [(layer, ms)], "longest": [(name, layer, ms, grid)]}``, each list
-    longest first (``longest`` holds every launch); work launched outside
-    every layer range is keyed ``"(no layer)"``."""
+    [(layer, ms)], "longest": [(name, layer, ms, grid)], "in_order": [...]}``,
+    each list longest first but ``in_order``, which holds the same launches
+    as ``longest`` in device order; work launched outside every layer range
+    is keyed ``"(no layer)"``."""
     launches = {}
     ranges = collections.defaultdict(list)
     for e in events:
@@ -77,12 +82,14 @@ def summarize_trace(events: list) -> dict:
         launch = launches.get(args.get("correlation"))
         layer = layer_of(*launch) if launch else "(no layer)"
         by_layer[layer] += ms
-        launched.append((e["name"], layer, ms, args.get("grid")))
+        launched.append((e["ts"], e["name"], layer, ms, args.get("grid")))
     kernels = sorted(((k, v[0], v[1]) for k, v in by_kernel.items()),
                      key=lambda r: -r[1])
     return {"busy_ms": sum(r[1] for r in kernels), "kernels": kernels,
             "layers": sorted(by_layer.items(), key=lambda r: -r[1]),
-            "longest": sorted(launched, key=lambda r: -r[2])}
+            "longest": [r[1:] for r in sorted(launched,
+                                              key=lambda r: -r[3])],
+            "in_order": [r[1:] for r in sorted(launched)]}
 
 
 def profile_step(*, net="vgg16", policy="IN_OUT_WR",
@@ -149,6 +156,13 @@ def main(argv=None) -> None:
     print("longest launches (ms, layer, grid):")
     for name, layer, ms, grid in res["longest"][:10]:
         print(f"  {ms:10.3f}  {layer:10s}  {grid}  {name[:80]}")
+    print("masked GEMM launches in device order (ms, layer, grid); per "
+          "layer FP, then dX and WG, a split launch followed by its reduce:")
+    for name, layer, ms, grid in res["in_order"]:
+        short = re.search(r"(\w+)(<[^>]*>)?\(", name)
+        if short and short.group(1) in _GEMM_KERNELS:
+            print(f"  {ms:10.3f}  {layer:10s}  {str(grid):16s}  "
+                  f"{short.group(0)[:-1]}")
 
 
 if __name__ == "__main__":

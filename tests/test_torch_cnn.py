@@ -191,6 +191,9 @@ def test_trace_summary_keys_device_work_to_the_launching_layer():
     assert res["busy_ms"] == 7.75
     assert res["longest"][:2] == [("gemm", "conv1", 4.0, None),
                                   ("gemm", "conv2", 2.0, None)]
+    assert [(r[0], r[1]) for r in res["in_order"]] == [
+        ("gemm", "conv1"), ("gemm", "conv2"), ("copy", "outer"),
+        ("gemm", "conv1"), ("fill", "(no layer)")]
 
 
 def test_image_batch_is_deterministic():

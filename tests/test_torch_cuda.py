@@ -281,3 +281,115 @@ def test_depthwise_node_with_channel_multiplier_stays_on_engine(dev):
     with pytest.raises(ValueError):
         cnn.apply_conv({"w": torch.randn((3, 3, 2, 4), device=dev)},
                        x.to(dev), node, pol, True)
+
+
+# (G, M, K, N, block, emit, A layout): a split-K shape (A plain and A a
+# transposed view, as in a WG GEMM), the group-major rows path (depthwise
+# FP/dX tiles, A a per-group view of the patch matrix) and the group-major
+# k path (depthwise WG tiles).
+PLAN_CASES = {
+    "split": (1, 40, 3000, 20, (16, 32, 8), (2, 4), "plain"),
+    "split transposed": (2, 40, 3000, 20, (16, 32, 8), None, "t"),
+    "rows": (40, 300, 9, 1, (128, 9, 1), (1, 1), "grouped"),
+    "rows N2": (40, 300, 9, 2, (128, 9, 2), (1, 1), "grouped"),
+    "k": (40, 9, 1000, 1, (9, 128, 1), None, "grouped_t"),
+    "k N2": (40, 9, 1000, 2, (9, 128, 2), (3, 1), "grouped_t"),
+}
+
+
+def _plan_operands(dev, g, m, k, n, block, layout):
+    rng = np.random.default_rng(3)
+    ni, nk, nj = shapes.grid_shape((m, k, n), block)
+    if layout == "grouped":       # group g's columns of (M, K·G) patches
+        pm = torch.tensor(rng.standard_normal((m, k * g)),
+                          dtype=torch.float32, device=dev)
+        a = pm.reshape(m, k, g, 1).permute(2, 0, 1, 3).reshape(g, m, k)
+    elif layout == "grouped_t":   # the same view of (K, M·G), transposed
+        pm = torch.tensor(rng.standard_normal((k, m * g)),
+                          dtype=torch.float32, device=dev)
+        a = pm.reshape(k, m, g, 1).permute(2, 0, 1, 3).reshape(g, k, m) \
+            .transpose(1, 2)
+    elif layout == "t":
+        a = torch.tensor(rng.standard_normal((g, k, m)), dtype=torch.float32,
+                         device=dev).transpose(1, 2)
+    else:
+        a = torch.tensor(rng.standard_normal((g, m, k)), dtype=torch.float32,
+                         device=dev)
+    b = torch.tensor(rng.standard_normal((g, k, n)), dtype=torch.float32,
+                     device=dev)
+    om, am, bmk = (torch.tensor(rng.random(s) < 0.6, device=dev)
+                   .to(torch.int32)
+                   for s in ((g, ni, nj), (g, ni, nk), (g, nk, nj)))
+    mult = torch.tensor(rng.random((g, m, n)) < 0.5, device=dev).float()
+    return a, b, om, am, bmk, mult
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_split_and_group_major_kernels_match_plain(dev, case):
+    g, m, k, n, block, emit, layout = PLAN_CASES[case]
+    a, b, om, am, bmk, mult = _plan_operands(dev, g, m, k, n, block, layout)
+    path = mm.gemm_path(g, m, k, n, block)
+    splits = mm.split_plan(g, m, k, n, block)
+    assert (path == mm.STANDARD) == case.startswith("split")
+    assert path == mm.GROUP_ROWS or splits > 1
+    kw = dict(block=block, epilogue_mult=mult, emit_gran=emit)
+    want, want_bits = mm.grouped_masked_matmul_plain(
+        a, b, om, am, bmk, out=torch.zeros(g, m, n, device=dev),
+        bits=None if emit is None else torch.zeros(
+            g, -(-m // emit[0]), -(-n // emit[1]), dtype=torch.int32,
+            device=dev), **kw)
+    flat = om.reshape(-1, om.shape[2]).contiguous()
+    results = [mm.grouped_masked_matmul_kernel(a, b, om, am, bmk, **kw)]
+    for cap in (flat.numel(), int(flat.sum()) // 2):
+        fi, jj, nl = qb.build_queue_kernel(flat, capacity=cap)
+        out, bits = mm.grouped_compact_masked_matmul_kernel(
+            a, b, fi, jj, nl, am, bmk, **kw)
+        if cap < flat.numel():
+            out, bits = mm.grouped_masked_matmul_kernel(
+                a, b, om, am, bmk, out=out, bits=bits, n_live=nl,
+                capacity=cap, **kw)
+        results.append((out, bits))
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    for got, got_bits in results:
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+        assert torch.equal(got == 0, want == 0)
+        if emit is not None:
+            assert torch.equal(got_bits, want_bits)
+        # one plan per shape: every schedule gives the same bits
+        assert torch.equal(got, results[0][0])
+    launches = kernels.launch_counts()
+    assert launches["splitk_reduce"] == (4 if splits > 1 else 0)
+    assert launches["compact_gemm"] == 2 and launches["predicated_gemm"] == 2
+
+
+def test_queue_overflow_counted_on_card_without_a_sync(dev):
+    g, m, k, n, block, emit = 2, 333, 250, 77, (8, 16, 8), (2, 4)
+    ni, nk, nj = shapes.grid_shape((m, k, n), block)
+    rng = np.random.default_rng(4)
+    arrays = [rng.standard_normal((g, m, k)), rng.standard_normal((g, k, n)),
+              rng.random((g, ni, nj)) < 0.5, rng.random((g, ni, nk)) < 0.7,
+              rng.random((g, nk, nj)) < 0.7, rng.random((g, m, n)) < 0.5]
+    a, b, om, am, bmk, mult = (torch.tensor(x).float() for x in arrays)
+    om, am, bmk = (x.to(torch.int32) for x in (om, am, bmk))
+    spec = ops.GemmSpec(block=block, groups=g, schedule="compact",
+                        epilogue=("sigma_prime", "bitmap_emit"),
+                        emit_gran=emit, max_active_blocks=int(om.sum()) // 2)
+    stats.reset()
+    want, want_bits = ops.sparse_gemm(a, b, (om, am, bmk), spec,
+                                      epilogue_mult=mult)
+    cpu_counts = stats.counts()
+    stats.reset()
+    args = [x.to(dev) for x in (a, b, om, am, bmk, mult)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, got_bits = ops.sparse_gemm(*args[:2], tuple(args[2:5]), spec,
+                                        epilogue_mult=args[5])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert stats.counts() == cpu_counts
+    assert cpu_counts["fallback:queue_overflow"] == 1
+    assert torch.equal(got_bits.cpu(), want_bits)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
