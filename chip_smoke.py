@@ -9,13 +9,19 @@ Phases (any failure makes the exit code nonzero):
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the VGG16 and MobileNet training steps give it, with its
      time, its plain version's time, a one-call PyTorch yardstick and its
-     lower bound.  The masked GEMM runs each shape in its compact, overflow
+     lower bound.  K1 and K5, one cell-bitmap encoder, also run with
+     planted NaNs (their cells must be 0, as in the reference) and K1 with
+     a pointer off 16-byte alignment; each case prints its encode_plan and
+     its device time, replayed from a CUDA graph beside the library call's.
+     The masked GEMM runs each shape in its compact, overflow
      -> predicated and predicated schedules, which must agree bit for bit,
      at the split-K weight-gradient shapes (VGG16 conv1, conv2, conv4,
      MobileNet dw1) and the group-major depthwise dX shapes (dw1, dw2) too;
      its split-K reduce is held alone against its plain version.  K6 and
      K7, on no training path, run at VGG16 conv4's dX and WG shapes, where
-     they must also equal sparse_gemm at G = 1 bit for bit.  A capacity-
+     they must also equal sparse_gemm at G = 1 bit for bit.  conv4's dX
+     runs again with a NaN planted in its sigma-prime multiplier, whose
+     emit cell must be 0 on every schedule.  A capacity-
      limited dispatch must count fallback:queue_overflow on the card as on
      the CPU, with no host sync;
   4. VGG16 end to end at full width (224x224, width 1.0, 1000 classes,
@@ -96,29 +102,14 @@ def check(ok, what):
     return ok
 
 
-def time_ms(fn, reps=7, warmup=2):
-    """Median CUDA-event time of ``fn`` over ``reps`` calls, in ms."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def rel_err(got, want):
-    """(max|got - want|, that over max|want|, within KERNEL_RTOL)."""
-    err = float((got - want).abs().max())
-    rel = err / max(float(want.abs().max()), 1e-30)
-    return err, rel, rel <= KERNEL_RTOL
+    """(max|got - want|, that over max|want|, within KERNEL_RTOL), NaNs
+    held apart: they must sit in the same places."""
+    import torch
+    err = float((got - want).nan_to_num(0.0).abs().max())
+    rel = err / max(float(want.nan_to_num(0.0).abs().max()), 1e-30)
+    return err, rel, rel <= KERNEL_RTOL and torch.equal(got.isnan(),
+                                                        want.isnan())
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +165,8 @@ def kernel_phase(dev):
     from repro_torch.kernels import queue_builder as qb
     from repro_torch.kernels import relu_encode as re_
     from repro_torch.kernels import _build, ref, shapes, stats
+    from repro_torch.kernel_times import event_ms as time_ms
+    from repro_torch.kernel_times import graph_ms as device_ms
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
@@ -197,20 +190,73 @@ def kernel_phase(dev):
             rows[name] = line
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
 
-    # K1 relu_encode: conv2's and conv4's inputs (gran (1, 64), (1, 128)).
-    for case, (m, n, gran) in (("conv2 input", (401408, 64, (1, 64))),
-                               ("conv4 input", (100352, 128, (1, 128)))):
-        z = torch.randn(m, n, device=dev, generator=gen)
+    def encoder_detail(x, gran, y, kernel, library):
+        """The encoder's launch plan for ``x``, as its wrapper computes it,
+        and the device times of the kernel and of its library call (the
+        single-call times hold the wrapper's host work too)."""
+        aligned = x.data_ptr() % 16 == 0 and (y is None
+                                              or y.data_ptr() % 16 == 0)
+        plan = re_.encode_plan(*x.shape, gran, aligned, ld=x.stride(0),
+                               sm_count=torch.cuda.get_device_properties(
+                                   dev).multi_processor_count)
+        return {"plan": plan._asdict(), "device_ms": device_ms(kernel),
+                "library_device_ms": None if library is None
+                else device_ms(library)}
+
+    def nan_rows(m):
+        """The 64 rows in which ``operand`` plants a NaN."""
+        return torch.arange(0, m, m // 64, device=dev)[:64]
+
+    def operand(m, n, offset=0, nan=False):
+        """(m, n) normal values ``offset`` elements into their buffer (an
+        offset of 1 leaves the pointer 4 bytes off 16-byte alignment);
+        with ``nan``, a NaN in column 0 beside a positive value in column
+        1 of each of ``nan_rows(m)``."""
+        buf = torch.randn(m * n + offset, device=dev, generator=gen)
+        x = buf[offset:].view(m, n)
+        if nan:
+            x[nan_rows(m), 0] = float("nan")
+            x[nan_rows(m), 1] = 1.5
+        return x
+
+    def nan_cells_dead(bits, m, gran):
+        """The cells holding the planted NaNs are 0, as in the reference."""
+        return int(bits[nan_rows(m) // gran[0], 0].sum()) == 0
+
+    def same(a, b):
+        """Bit-equal, a NaN equal to a NaN."""
+        return torch.equal(a.isnan(), b.isnan()) and \
+            torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+    # K1 relu_encode: VGG16 conv2's and conv4's inputs (gran (1, 64),
+    # (1, 128)); MobileNet's dw1 and dw2 inputs (depthwise: (1, 1)) and pw1's
+    # (1, 32); dw2's and pw1's with planted NaNs (at (1, 32) beside a live
+    # value in the cell) and dw2's with a pointer off 16-byte alignment
+    # (the thread path).
+    for case, (m, n, gran, offset, nan) in (
+            ("conv2 input", (401408, 64, (1, 64), 0, False)),
+            ("conv4 input", (100352, 128, (1, 128), 0, False)),
+            ("dw1 input", (100352, 32, (1, 1), 0, False)),
+            ("dw2 input", (100352, 64, (1, 1), 0, False)),
+            ("pw1 input", (100352, 32, (1, 32), 0, False)),
+            ("dw2 input, planted NaNs", (100352, 64, (1, 1), 0, True)),
+            ("pw1 input, planted NaNs", (100352, 32, (1, 32), 0, True)),
+            ("dw2 input, unaligned", (100352, 64, (1, 1), 1, False))):
+        z = operand(m, n, offset, nan)
         y, bits = re_.relu_encode(z, gran)
         yp, bp = re_.relu_encode_plain(z, gran)
-        ok = torch.equal(y, yp) and torch.equal(bits, bp)
-        err = float((y - yp).abs().max())
-        nbits = bits.numel()
+        ok = same(y, yp) and torch.equal(bits, bp)
+        if nan:
+            ok = ok and nan_cells_dead(bits, m, gran)
+        err = float((y - yp).nan_to_num(0.0).abs().max())
         report("relu_encode", case, err, ok,
                time_ms(lambda: re_.relu_encode(z, gran)),
                time_ms(lambda: re_.relu_encode_plain(z, gran)),
                time_ms(lambda: torch.relu(z)),
-               8.0 * m * n + 4.0 * nbits, 0.0)
+               8.0 * m * n + 4.0 * bits.numel(), 0.0,
+               plan=encoder_detail(z, gran, y,
+                                   lambda: re_.relu_encode(z, gran),
+                                   lambda: torch.relu(z)))
 
     # K2 queue builder: the conv2 dX tile bitmap (3136 x 1) and a (784 x 4)
     # one, at full capacity and at a capacity below n_live.
@@ -260,9 +306,16 @@ def kernel_phase(dev):
         return a, b, om, am, bmk, mult
 
     def run_gemm(name, case, g, m, k, n, block, emit, reduce_row=False,
-                 **kw):
+                 nan=False, **kw):
         a, b, om, am, bmk, mult = gemm_case(g, m, k, n, block, **kw)
         ni, _, nj = shapes.grid_shape((m, k, n), block)
+        if nan:
+            # A NaN in sigma-prime's multiplier inside the first live tile:
+            # its emit cell must be 0 on every schedule, as in the reference.
+            gi, ti, tj = om.nonzero()[0].tolist()
+            mult[gi, ti * block[0], tj * block[2]] = float("nan")
+            nan_cell = (gi, ti * block[0] // emit[0],
+                        tj * block[2] // emit[1])
         plan = {"path": mm.gemm_path(g, m, k, n, block),
                 "splits": mm.split_plan(g, m, k, n, block)}
         qmask = om if om is not None else torch.ones(
@@ -320,11 +373,13 @@ def kernel_phase(dev):
             err, rel, ok = rel_err(got, want)
             if emit is not None:
                 ok = ok and torch.equal(got_bits, want_bits)
+            if nan:
+                ok = ok and int(got_bits[nan_cell]) == 0
             ok = ok and torch.equal(got == 0, want == 0)
             report(kname, case + tag, err, ok, time_ms(fn), plain_ms, lib_ms,
                    bytes_, flops, rel, plan)
         # One plan per shape: every schedule sums in one order.
-        check(all(torch.equal(r, results[0]) for r in results),
+        check(all(same(r, results[0]) for r in results),
               f"{case}: compact, its overflow fallback and predicated are "
               f"bit-equal")
         if reduce_row:
@@ -383,6 +438,8 @@ def kernel_phase(dev):
     # small case with block (8, 16, 8).
     run_gemm("", "conv4 dX 100352x1152x128", 1, 100352, 1152, 128,
              (128, 128, 128), (1, 128), b_mask=False)
+    run_gemm("", "conv4 dX, planted NaN", 1, 100352, 1152, 128,
+             (128, 128, 128), (1, 128), b_mask=False, nan=True)
     run_gemm("", "conv4 WG 1152x100352x128", 1, 1152, 100352,
              128, (128, 128, 128), None, sigma=False, a_t=True,
              out_mask=False)
@@ -411,20 +468,29 @@ def kernel_phase(dev):
     # K5 bitmap_scan: conv0's input (the image, gran (1, 1)), the head's
     # input (gran (128, 128)) and a ragged signed case; bits exact.  The
     # x.ne(0) yardstick computes the same function only at gran (1, 1).
-    for case, (m, n, gran, density) in (
-            ("conv0 input 401408x3 gran 1x1", (401408, 3, (1, 1), 1.0)),
-            ("head input 8x1024 gran 128x128", (8, 1024, (128, 128), 1.0)),
-            ("ragged 333x29 gran 8x8", (333, 29, (8, 8), 0.02))):
-        x = torch.randn(m, n, device=dev, generator=gen)
+    for case, (m, n, gran, density, nan) in (
+            ("conv0 input 401408x3 gran 1x1", (401408, 3, (1, 1), 1.0,
+                                               False)),
+            ("head input 8x1024 gran 128x128", (8, 1024, (128, 128), 1.0,
+                                                False)),
+            ("ragged 333x29 gran 8x8", (333, 29, (8, 8), 0.02, False)),
+            ("conv0 input, planted NaNs, gran 1x3", (401408, 3, (1, 3), 1.0,
+                                                    True))):
+        x = operand(m, n, nan=nan)
         x *= torch.rand(m, n, device=dev, generator=gen) < density
         bits = k5.bitmap_scan(x, gran)
         want = k5.bitmap_scan_plain(x, gran)
         ok = torch.equal(bits, want)
-        library = time_ms(lambda: x.ne(0)) if gran == (1, 1) else None
+        if nan:
+            ok = ok and nan_cells_dead(bits, m, gran)
+        ne = (lambda: x.ne(0)) if gran == (1, 1) else None
         report("bitmap_scan", case, 0.0 if ok else 1.0, ok,
                time_ms(lambda: k5.bitmap_scan(x, gran)),
-               time_ms(lambda: k5.bitmap_scan_plain(x, gran)), library,
-               4.0 * m * n + 4.0 * bits.numel(), 0.0)
+               time_ms(lambda: k5.bitmap_scan_plain(x, gran)),
+               None if ne is None else time_ms(ne),
+               4.0 * m * n + 4.0 * bits.numel(), 0.0,
+               plan=encoder_detail(x, gran, None,
+                                   lambda: k5.bitmap_scan(x, gran), ne))
 
     # K6/K7, the 2-D launches, at VGG16 conv4's dX shape (block-aligned):
     # each against its plain version; K7 scattered bit-equal to K6, and K6
@@ -927,14 +993,15 @@ def main():
 
     mm_cu = "src/repro_torch/csrc/masked_matmul.cu"
     mm_py = "src/repro/kernels/masked_matmul.py"
-    sources = {"relu_encode": ("src/repro_torch/csrc/relu_encode.cu",
+    encoder = "src/repro_torch/csrc/cell_encode.cuh"
+    sources = {"relu_encode": (encoder,
                                "src/repro/kernels/relu_encode.py:63"),
                "queue_builder": ("src/repro_torch/csrc/queue_builder.cu",
                                  "src/repro/kernels/queue_builder.py:122"),
                "compact_gemm": (mm_cu, f"{mm_py}:492"),
                "predicated_gemm": (mm_cu, f"{mm_py}:347"),
                "splitk_reduce": (mm_cu, f"{mm_py}:492"),
-               "bitmap_scan": ("src/repro_torch/csrc/bitmap_scan.cu",
+               "bitmap_scan": (encoder,
                                "src/repro/kernels/bitmap_scan.py:61"),
                "masked_matmul_2d": (mm_cu, f"{mm_py}:172"),
                "compact_masked_matmul_2d": (mm_cu, f"{mm_py}:626")}

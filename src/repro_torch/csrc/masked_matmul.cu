@@ -18,12 +18,19 @@
 //   out = sum over k blocks with a_mask[g,i,kb] && b_mask[g,kb,j] of A.B,
 // in full float32 FMA (no TF32, no tensor cores), then the epilogue of
 // repro/kernels/masked_matmul.py:_apply_epilogue: out *= mult (sigma-prime)
-// and, over the post-sigma-prime values, bits[g, m/er, n/ec] = any(|out|>0).
+// and, over the post-sigma-prime values, bits[g, m/er, n/ec] = any(|out|>0)
+// and no NaN in the cell (the reference's max over the cell carries a NaN,
+// and NaN > 0 is false).
 // Only live tiles are written, straight to their (g, i, j) place in the
 // caller's zero-filled output (no compacted buffer, no scatter); bits are
-// plain stores of 1 (all writers agree).  Queue overflow is decided on the
-// device: the compact launch exits when n_live > cap and the predicated
-// fallback when n_live <= cap, so the caller launches both with no sync.
+// plain stores of 1 (all writers agree).  A NaN is rare, so it costs the
+// store loop one flag store: an emitting launch that meets a NaN output
+// sets a device flag, and emit_nan_fixup_kernel, launched after every
+// emitting launch, returns at once when the flag is clear, and otherwise
+// clears the bit of every cell whose output holds a NaN.  Queue overflow is
+// decided on the device: the compact launch exits when n_live > cap and the
+// predicated fallback when n_live <= cap, so the caller launches both with
+// no sync.
 //
 // The caller (kernels/masked_matmul.py) picks a path and a split count from
 // the shape (G, M, K, N) and the mask block alone, never from the masks,
@@ -71,8 +78,17 @@ constexpr int kRowsMaxRows = 64;
 constexpr int kKMaxMN = 32;                   // group k: accumulators
 constexpr int kReduceRows = 8;                // reduce: rows per block
 
+constexpr int kFixupBlocks = 264;             // NaN fix-up: 2 per SM at most
+
 enum { kPredicated = 0, kCompact = 1, kCompactOut = 2 };   // mode
 enum { kStandard = 0, kGroupRows = 1, kGroupK = 2 };       // path
+
+// Set by an emitting launch that wrote a NaN output; cleared by the last
+// block of the fix-up launch that follows it in stream order.  One flag per
+// device: emitting launches must be ordered on one stream, as the port
+// issues every launch on PyTorch's current stream.
+__device__ int g_emit_nan = 0;
+__device__ unsigned g_fixup_done = 0;
 
 struct GemmArgs {
   const float* A;
@@ -156,13 +172,22 @@ __device__ __forceinline__ void split_range(const GemmArgs& p, int z, int& lo,
   hi = (int)((long long)(z + 1) * p.Kb / p.splits);
 }
 
+// The bitmap of one post-sigma-prime output: 1 for a live value; a NaN
+// raises the flag for the fix-up launch.
+__device__ __forceinline__ void emit_bit(const GemmArgs& p, int g, int m,
+                                         int n, float v) {
+  if (fabsf(v) > 0.f)
+    p.bits[((long long)g * p.Mc + m / p.er) * p.Nc + n / p.ec] = 1;
+  else if (v != v)
+    g_emit_nan = 1;
+}
+
 // The epilogue of one output element: x mult, the store, the bitmap.
 __device__ __forceinline__ void emit(const GemmArgs& p, long long o, int g,
                                      int m, int n, float v) {
   if (p.mult != nullptr) v *= p.mult[o];
   p.out[o] = v;
-  if (p.bits != nullptr && fabsf(v) > 0.f)
-    p.bits[((long long)g * p.Mc + m / p.er) * p.Nc + n / p.ec] = 1;
+  if (p.bits != nullptr) emit_bit(p, g, m, n, v);
 }
 
 // The standard path.  kOutCompact selects the compact_out store and kSplit
@@ -282,8 +307,7 @@ masked_gemm_kernel(const GemmArgs p) {
       } else {
         p.out[o] = v;
       }
-      if (p.bits != nullptr && fabsf(v) > 0.f)
-        p.bits[((long long)g * p.Mc + m / p.er) * p.Nc + n / p.ec] = 1;
+      if (p.bits != nullptr) emit_bit(p, g, m, n, v);
     }
   }
 }
@@ -489,6 +513,45 @@ splitk_reduce_kernel(const GemmArgs p) {
   }
 }
 
+// After an emitting launch: nothing when no output was NaN (the common
+// case, one flag read per block); else bits[cell] = 0 for every cell whose
+// output holds a NaN.  The whole output is read then: the caller zero-
+// filled it and the launch wrote only live tiles, so a NaN in it is exactly
+// a NaN the epilogue met.  The last block to finish clears the flag.
+__global__ void __launch_bounds__(kThreads)
+emit_nan_fixup_kernel(const GemmArgs p) {
+  if (*(volatile int*)&g_emit_nan == 0) return;
+  const long long total = (long long)p.G * p.M * p.N;
+  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x;
+       o < total; o += (long long)gridDim.x * kThreads) {
+    const float v = p.out[o];
+    if (v != v) {
+      const long long gm = o / p.N;
+      const int n = (int)(o - gm * p.N);
+      const int g = (int)(gm / p.M);
+      const int m = (int)(gm - (long long)g * p.M);
+      p.bits[((long long)g * p.Mc + m / p.er) * p.Nc + n / p.ec] = 0;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(&g_fixup_done, 1u) == gridDim.x - 1) {
+      g_emit_nan = 0;
+      g_fixup_done = 0;
+      __threadfence();
+    }
+  }
+}
+
+int launch_fixup(const GemmArgs& p, cudaStream_t st) {
+  const long long total = (long long)p.G * p.M * p.N;
+  const int blocks = (int)min((total + kThreads - 1) / kThreads,
+                              (long long)kFixupBlocks);
+  emit_nan_fixup_kernel<<<blocks, kThreads, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 int pow2_at_least(int n) {
   int p = 1;
   while (p < n) p *= 2;
@@ -616,22 +679,25 @@ extern "C" int masked_gemm_launch(
         default: group_k_kernel<8><<<grid, kThreads, 0, st>>>(p); break;
       }
     }
-    return (int)cudaGetLastError();
-  }
-  const long long nsub = (long long)((bm + TM - 1) / TM) * p.nsub_n;
-  const long long tiles =
-      mode == kPredicated ? (long long)G * p.Mb * p.Nb : (long long)cap;
-  if (tiles > 0x7fffffffLL || nsub > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tiles, (unsigned)nsub, (unsigned)splits);
-  if (splits > 1) {
-    masked_gemm_kernel<false, true><<<grid, kThreads, 0, st>>>(p);
-  } else if (mode == kCompactOut) {
-    masked_gemm_kernel<true, false><<<grid, kThreads, 0, st>>>(p);
   } else {
-    masked_gemm_kernel<false, false><<<grid, kThreads, 0, st>>>(p);
+    const long long nsub = (long long)((bm + TM - 1) / TM) * p.nsub_n;
+    const long long tiles =
+        mode == kPredicated ? (long long)G * p.Mb * p.Nb : (long long)cap;
+    if (tiles > 0x7fffffffLL || nsub > 65535)
+      return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)tiles, (unsigned)nsub, (unsigned)splits);
+    if (splits > 1) {
+      masked_gemm_kernel<false, true><<<grid, kThreads, 0, st>>>(p);
+    } else if (mode == kCompactOut) {
+      masked_gemm_kernel<true, false><<<grid, kThreads, 0, st>>>(p);
+    } else {
+      masked_gemm_kernel<false, false><<<grid, kThreads, 0, st>>>(p);
+    }
   }
-  return (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
+  // A split launch emits nothing: its reduce does, and the fix-up follows it.
+  if (err != 0 || bits == nullptr || splits > 1) return err;
+  return launch_fixup(p, st);
 }
 
 // The split-K reduce, launched after masked_gemm_launch with the same
@@ -663,5 +729,7 @@ extern "C" int masked_gemm_reduce_launch(
   const dim3 grid((unsigned)tiles, (unsigned)nsub,
                   (unsigned)((min(bm, TM) + kReduceRows - 1) / kReduceRows));
   splitk_reduce_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
+  if (err != 0 || bits == nullptr) return err;
+  return launch_fixup(p, (cudaStream_t)stream);
 }

@@ -37,8 +37,8 @@ _L = ctypes.c_longlong
 _GEMM = [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
          _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
-    "bitmap_scan_launch": [_P, _L, _P, _I, _I, _I, _I, _P],
-    "relu_encode_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bitmap_scan_launch": [_P, _L, _P] + [_I] * 9 + [_P],
+    "relu_encode_launch": [_P, _P, _P] + [_I] * 9 + [_P],
     "queue_builder_launch": [_P, _I, _I, _I, _P, _P, _P, _P],
     "masked_gemm_launch": _GEMM,
     "masked_gemm_reduce_launch": _GEMM,

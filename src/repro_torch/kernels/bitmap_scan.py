@@ -2,15 +2,16 @@
 
 Source note.  Replaces the TPU kernel ``repro/kernels/bitmap_scan.py``
 (``bitmap_scan_kernel`` → ``_bitmap_scan_kernel``): per (gr, gc) cell of a
-signed (M, N) tensor, bit = any(|x| > 0).  It runs only where no ReLU made
-the bitmap for free: the opt-in scan of raw signed inputs
+signed (M, N) tensor, bit = any(|x| > 0) and no NaN in the cell (the
+reference's max over the cell carries a NaN).  It runs only where no ReLU
+made the bitmap for free: the opt-in scan of raw signed inputs
 (``SparsityPolicy.scan_signed_inputs``).  The CUDA kernel is
-``csrc/bitmap_scan.cu``.  On the H100 it is bound by memory (4 bytes per
-element plus 4 per cell) and, at the shapes a training step gives it, by
-launch latency; a cell of a few elements gets one thread (coalesced at gran
-(1, 1)), a larger one a warp reducing with ``__any_sync``.  The kernel masks
-the ragged edge itself, so no padded copy is made (the TPU wrapper pads to
-its launch slab).
+``csrc/bitmap_scan.cu``, a launcher over the encoder of
+``csrc/cell_encode.cuh`` that K1 shares, on the plan of
+``relu_encode.encode_plan``.  On the H100 it is bound by memory (4 bytes
+per element plus 4 per cell) and, at the shapes a training step gives it,
+by launch latency.  The kernel masks the ragged edge itself, so no padded
+copy is made (the TPU wrapper pads to its launch slab).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .relu_encode import launch_encoder
 from .shapes import block_bitmap
 
 # Kernel launches since the last reset (plain-version calls are not counted).
@@ -27,7 +29,8 @@ launches = 0
 
 def bitmap_scan_plain(x: torch.Tensor, gran: Tuple[int, int]) -> torch.Tensor:
     """Plain PyTorch version: the (ceil(M/gr), ceil(N/gc)) int32
-    any(|x| > 0) bitmap, the ragged edge zero-padded."""
+    any(|x| > 0) bitmap, 0 where a cell holds a NaN, the ragged edge
+    zero-padded."""
     return block_bitmap(x, *gran)
 
 
@@ -53,8 +56,6 @@ def bitmap_scan(x: torch.Tensor, gran: Tuple[int, int]) -> torch.Tensor:
     lib = _build.load()
     bits = torch.empty((-(-m // gr), -(-n // gc)), dtype=torch.int32,
                        device=x.device)
-    err = lib.bitmap_scan_launch(x.data_ptr(), x.stride(0), bits.data_ptr(),
-                                 m, n, gr, gc, _build.stream_handle(x.device))
-    _build.check(err, "bitmap_scan")
+    launch_encoder(lib.bitmap_scan_launch, x, x.stride(0), None, bits, gran)
     launches += 1
     return bits

@@ -37,7 +37,11 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 # The device functions of csrc/masked_matmul.cu.
 _GEMM_KERNELS = ("masked_gemm_kernel", "group_rows_kernel", "group_k_kernel",
-                 "queue_member_kernel", "splitk_reduce_kernel")
+                 "queue_member_kernel", "splitk_reduce_kernel",
+                 "emit_nan_fixup_kernel")
+# The device function of csrc/cell_encode.cuh (K1: encode_kernel<true, ...>,
+# K5: encode_kernel<false, ...>; the second argument is the path).
+_ENCODER_KERNELS = ("encode_kernel",)
 
 
 def summarize_trace(events: list) -> dict:
@@ -156,13 +160,18 @@ def main(argv=None) -> None:
     print("longest launches (ms, layer, grid):")
     for name, layer, ms, grid in res["longest"][:10]:
         print(f"  {ms:10.3f}  {layer:10s}  {grid}  {name[:80]}")
-    print("masked GEMM launches in device order (ms, layer, grid); per "
-          "layer FP, then dX and WG, a split launch followed by its reduce:")
-    for name, layer, ms, grid in res["in_order"]:
-        short = re.search(r"(\w+)(<[^>]*>)?\(", name)
-        if short and short.group(1) in _GEMM_KERNELS:
-            print(f"  {ms:10.3f}  {layer:10s}  {str(grid):16s}  "
-                  f"{short.group(0)[:-1]}")
+    for what, names in (
+            ("masked GEMM launches in device order (ms, layer, grid); per "
+             "layer FP, then dX and WG, a split launch followed by its "
+             "reduce:", _GEMM_KERNELS),
+            ("cell-bitmap encoder launches in device order (ms, layer, "
+             "grid):", _ENCODER_KERNELS)):
+        print(what)
+        for name, layer, ms, grid in res["in_order"]:
+            short = re.search(r"(\w+)(<[^>]*>)?\(", name)
+            if short and short.group(1) in names:
+                print(f"  {ms:10.3f}  {layer:10s}  {str(grid):16s}  "
+                      f"{short.group(0)[:-1]}")
 
 
 if __name__ == "__main__":

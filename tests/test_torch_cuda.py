@@ -41,6 +41,77 @@ def test_relu_encode_kernel_matches_plain(dev, shape, gran):
     assert k1.launches == 1
 
 
+# The encoder's paths (kernels/relu_encode.encode_plan): (shape, gran,
+# storage offset in elements, path).  An offset of 1 leaves the pointer
+# 4 bytes off 16-byte alignment.
+ENCODER_CASES = {
+    "(1, 1) aligned": ((1000, 64), (1, 1), 0, "quads"),
+    "(1, 1) offset pointer": ((1000, 64), (1, 1), 1, "thread"),
+    "(1, 1) N = 3, flat with a tail": ((1001, 3), (1, 1), 0, "quads"),
+    "(1, 2) flat with a tail": ((999, 34), (1, 2), 0, "quads"),
+    "(1, 4)": ((500, 36), (1, 4), 0, "quads"),
+    "(1, 32)": ((1000, 32), (1, 32), 0, "segments"),
+    "(1, 32) ragged": ((1000, 72), (1, 32), 0, "segments"),
+    "(1, 64)": ((1000, 64), (1, 64), 0, "segments"),
+    "(1, 128)": ((300, 128), (1, 128), 0, "segments"),
+    "(1, 64) offset pointer": ((300, 64), (1, 64), 1, "warp"),
+    "(8, 16) ragged": ((333, 29), (8, 16), 0, "warp"),
+    "(8, 16) ragged, float4 rows": ((333, 36), (8, 16), 0, "warp"),
+    "(4, 1)": ((333, 29), (4, 1), 0, "thread"),
+    "(128, 128)": ((8, 1024), (128, 128), 0, "warp"),
+}
+
+
+def _planted(shape, offset, dev, seed):
+    """A (M, N) operand at ``offset`` elements into its buffer, signed, with
+    a NaN beside a positive value in a few cells."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m, n = shape
+    buf = torch.randn(m * n + offset, device=dev, generator=gen)
+    x = buf[offset:].view(m, n)
+    for i in (0, m // 2, m - 1):
+        j = (7 * i) % n
+        x[i, j] = float("nan")
+        x[i, (j + 1) % n] = 1.5
+    return x
+
+
+def _same(a, b):
+    """Bit-equal, a NaN equal to a NaN."""
+    return torch.equal(a.isnan(), b.isnan()) and \
+        torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("case", sorted(ENCODER_CASES))
+def test_encoder_paths_match_plain(dev, case):
+    shape, gran, offset, path = ENCODER_CASES[case]
+    z = _planted(shape, offset, dev, 0)
+    plan = k1.encode_plan(*shape, gran, z.data_ptr() % 16 == 0)
+    assert plan.path == path
+    y, bits = k1.relu_encode(z, gran)
+    yp, bp = k1.relu_encode_plain(z, gran)
+    assert _same(y, yp) and torch.equal(bits, bp)
+    x = _planted(shape, offset, dev, 1)
+    x *= torch.rand(shape, device=dev) > 0.5
+    assert torch.equal(k5.bitmap_scan(x, gran), k5.bitmap_scan_plain(x, gran))
+    # the planted NaN cells are 0 in both, as in the reference
+    assert int(bits[0, 0]) == int(bp[0, 0])
+    assert k1.launches == 1 and k5.launches == 1
+
+
+@pytest.mark.parametrize("start,path", [(4, "quads"), (2, "thread")])
+def test_bitmap_scan_strided_view_at_1x1(dev, start, path):
+    """A column view of a wider tensor (row stride 72): 16-byte aligned rows
+    take the quads path row by row, rows 8 bytes off take a thread per
+    element."""
+    wide = _planted((333, 72), 0, dev, 2)
+    view = wide[:, start:start + 64]
+    assert k1.encode_plan(333, 64, (1, 1), view.data_ptr() % 16 == 0,
+                          ld=view.stride(0)).path == path
+    assert torch.equal(k5.bitmap_scan(view, (1, 1)),
+                       k5.bitmap_scan_plain(view, (1, 1)))
+
+
 @pytest.mark.parametrize("shape", [(3136, 1), (5, 3000), (1, 1)])
 def test_queue_kernel_matches_plain(dev, shape):
     bm = (torch.rand(shape, device=dev) < 0.4).to(torch.int32)
@@ -393,3 +464,43 @@ def test_queue_overflow_counted_on_card_without_a_sync(dev):
     assert torch.equal(got_bits.cpu(), want_bits)
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+@pytest.mark.parametrize("case", ["unsplit", "split", "rows", "rows N2",
+                                  "k N2"])
+def test_gemm_emit_gives_nan_cells_0(dev, case):
+    """A NaN planted in sigma-prime's multiplier inside a live tile, beside
+    live values of its emit cell: on every path and schedule the cell's bit
+    is 0, as the reference's max over the cell gives it; the next launch,
+    with no NaN, emits as before."""
+    g, m, k, n, block, emit, layout = PLAN_CASES.get(
+        case, (2, 333, 250, 77, (8, 16, 8), (2, 4), "plain"))
+    a, b, om, am, bmk, mult = _plan_operands(dev, g, m, k, n, block, layout)
+    assert (mm.split_plan(g, m, k, n, block) > 1) == (case in ("split",
+                                                               "k N2"))
+    live = om.nonzero()[0].tolist()
+    gi, ti, tj = live
+    bad = mult.clone()
+    bad[gi, ti * block[0], tj * block[2]] = float("nan")
+    for mult_ in (bad, mult):
+        kw = dict(block=block, epilogue_mult=mult_, emit_gran=emit)
+        want, want_bits = mm.grouped_masked_matmul_plain(
+            a, b, om, am, bmk, out=torch.zeros(g, m, n, device=dev),
+            bits=torch.zeros(g, -(-m // emit[0]), -(-n // emit[1]),
+                             dtype=torch.int32, device=dev), **kw)
+        flat = om.reshape(-1, om.shape[2]).contiguous()
+        fi, jj, nl = qb.build_queue_kernel(flat, capacity=flat.numel())
+        results = [mm.grouped_masked_matmul_kernel(a, b, om, am, bmk, **kw),
+                   mm.grouped_compact_masked_matmul_kernel(
+                       a, b, fi, jj, nl, am, bmk, **kw)]
+        torch.cuda.synchronize()
+        scale = float(want.nan_to_num(0.0).abs().max())
+        cell = (gi, ti * block[0] // emit[0], tj * block[2] // emit[1])
+        for got, got_bits in results:
+            assert torch.equal(got.isnan(), want.isnan())
+            assert float((got - want).nan_to_num(0.0).abs().max()) \
+                <= 1e-5 * scale
+            assert torch.equal(got_bits, want_bits)
+            if mult_ is bad:
+                assert int(got_bits[cell]) == 0
+    assert int(want_bits.sum()) > 0

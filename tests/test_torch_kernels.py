@@ -38,7 +38,10 @@ def _reset_both_stats():
 # K1 relu_encode
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("gran", [(1, 8), (8, 16)])
+# (1, 1), (1, 2), (1, 32): MobileNet's depthwise and pointwise inputs;
+# (4, 1) a cell of several rows; (37, 29) has N % 4 != 0.
+@pytest.mark.parametrize("gran", [(1, 8), (8, 16), (1, 1), (1, 2), (1, 32),
+                                  (4, 1)])
 @pytest.mark.parametrize("shape", [(37, 29), (64, 48)])
 def test_relu_encode_matches_reference(gran, shape):
     z = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
@@ -48,6 +51,90 @@ def test_relu_encode_matches_reference(gran, shape):
     np.testing.assert_array_equal(tbits.numpy(), np.asarray(jbits))
     assert tstats.counts() == jstats.counts() == {"encode:act": 1}
     assert launch_counts()["relu_encode"] == 0     # CPU: plain version
+
+
+@pytest.mark.parametrize("gran", [(1, 2), (1, 8), (4, 1), (8, 16)])
+def test_relu_encode_nan_cell_matches_reference(gran):
+    """A cell holding a NaN next to a positive value: the reference's max
+    over the cell carries the NaN and NaN > 0 is false, so its bit is 0;
+    the NaN itself passes through the ReLU."""
+    z = np.random.default_rng(5).standard_normal((37, 29)).astype(np.float32)
+    z[9, 4], z[8, 5] = np.nan, 2.0
+    z[20, 17] = np.nan                      # a NaN beside negatives too
+    jy, jbits = jops.relu_encode(jnp.asarray(z), block=gran)
+    ty, tbits = tops.relu_encode(torch.tensor(z), block=gran)
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))   # NaN == NaN
+    np.testing.assert_array_equal(tbits.numpy(), np.asarray(jbits))
+    gr, gc = gran
+    assert int(tbits[9 // gr, 4 // gc]) == 0
+    assert int(tbits[20 // gr, 17 // gc]) == 0
+    assert np.isnan(ty.numpy()[9, 4])
+
+
+# encode_plan: the encoder's path from the shape, the cell and the
+# alignment alone (csrc/cell_encode.cuh).
+ENCODE_PLANS = {
+    # (m, n, gran, aligned, ld): (path, lanes per cell, flat)
+    "dw2 input (1, 1)": ((100352, 64, (1, 1), True, None),
+                         ("quads", 1, True)),
+    "(1, 2)": ((100352, 32, (1, 2), True, None), ("quads", 1, True)),
+    "image (1, 1), N = 3": ((401408, 3, (1, 1), True, None),
+                            ("quads", 1, True)),
+    "strided view (1, 1)": ((333, 64, (1, 1), True, 72),
+                            ("quads", 1, False)),
+    "pw1 input (1, 32)": ((100352, 32, (1, 32), True, None),
+                          ("segments", 8, False)),
+    "conv2 input (1, 64)": ((401408, 64, (1, 64), True, None),
+                            ("segments", 16, False)),
+    "conv4 input (1, 128)": ((100352, 128, (1, 128), True, None),
+                             ("segments", 32, False)),
+    "head (128, 128)": ((8, 1024, (128, 128), True, None),
+                        ("warp", 32, False)),
+    "ragged (8, 16)": ((333, 29, (8, 16), True, None), ("warp", 32, False)),
+    "unaligned (1, 1)": ((100352, 64, (1, 1), False, None),
+                         ("thread", 1, False)),
+    "unaligned (1, 32)": ((100352, 32, (1, 32), False, None),
+                          ("warp", 32, False)),
+    "odd row stride (1, 1)": ((333, 64, (1, 1), True, 65),
+                              ("thread", 1, False)),
+    "(4, 1)": ((64, 48, (4, 1), True, None), ("thread", 1, False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENCODE_PLANS))
+def test_encode_plan_picks_the_path(case, monkeypatch):
+    from repro_torch.kernels import relu_encode as k1
+
+    (m, n, gran, aligned, ld), want = ENCODE_PLANS[case]
+
+    def no_device(*_a, **_k):
+        raise AssertionError("encode_plan asked the device")
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    plan = k1.encode_plan(m, n, gran, aligned, ld=ld)
+    assert (plan.path, plan.lanes_per_cell, plan.flat) == want
+    # a pure function: the same inputs, the same plan
+    assert k1.encode_plan(m, n, gran, aligned, ld=ld) == plan
+    assert plan.vector == (plan.path in ("quads", "segments")
+                           or (plan.path == "warp" and aligned
+                               and n % 4 == 0 and gran[1] % 4 == 0
+                               and (ld or n) % 4 == 0))
+    # the grid covers the work, at most BLOCKS_PER_SM blocks per SM
+    assert 1 <= plan.grid <= k1.SM_COUNT * k1.BLOCKS_PER_SM
+    assert k1.encode_plan(m, n, gran, aligned, ld=ld, sm_count=4).grid \
+        <= 4 * k1.BLOCKS_PER_SM
+
+
+def test_encode_plan_grid_and_limits():
+    from repro_torch.kernels import relu_encode as k1
+
+    # dw2's input: 1.6 M quads fill the card; a small one takes one block
+    assert k1.encode_plan(100352, 64, (1, 1), True).grid == 132 * 8
+    assert k1.encode_plan(8, 64, (1, 1), True).grid == 1
+    assert k1.encode_plan(8, 64, (1, 32), True).grid == 1
+    with pytest.raises(ValueError):
+        k1.encode_plan(2 ** 16, 2 ** 15, (1, 1), True)
+    with pytest.raises(ValueError):
+        k1.encode_plan(8, 8, (0, 1), True)
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,20 @@ def test_bitmap_scan_sees_negative_values():
     assert tbits.tolist() == [[0, 0], [1, 1]]
 
 
+@pytest.mark.parametrize("gran", [(1, 1), (1, 3), (8, 8)])
+def test_bitmap_scan_nan_cell_matches_reference(gran):
+    """A cell holding a NaN next to a nonzero value: the reference's max over
+    the cell carries the NaN and NaN > 0 is false, so its bit is 0."""
+    x = _signed((37, 29), 3)
+    x[9, 4], x[8, 5], x[9, 5] = np.nan, -2.0, 1.5
+    jbits = jops.bitmap_scan(jnp.asarray(x), block=gran, kind="act")
+    tbits = tops.bitmap_scan(torch.tensor(x), block=gran, kind="act")
+    np.testing.assert_array_equal(tbits.numpy(), np.asarray(jbits))
+    gr, gc = gran
+    assert int(tbits[9 // gr, 4 // gc]) == 0
+    assert int(tbits[9 // gr, 5 // gc]) == (1 if gc == 1 else 0)
+
+
 @pytest.mark.parametrize("impl", ["pallas", "xla_ref"])
 def test_scan_bitmap_routes_like_reference(impl):
     x = _signed((21, 12), 2)
