@@ -16,8 +16,15 @@ Phases (any failure makes the exit code nonzero):
      The masked GEMM runs each shape in its compact, overflow
      -> predicated and predicated schedules, which must agree bit for bit,
      at the split-K weight-gradient shapes (VGG16 conv1, conv2, conv4,
-     MobileNet dw1) and the group-major depthwise dX shapes (dw1, dw2) too;
-     its split-K reduce is held alone against its plain version.  K6 and
+     MobileNet dw1), conv9's 2-split dX and the group-major depthwise dX
+     shapes (dw1, dw2) too; its split-K reduce is held alone against its
+     plain version in the reduce plan's order (bit-equal) and in split
+     order, at conv2's and dw1's WGs and conv9's dX (sigma-prime + emit),
+     with its device time replayed from a CUDA graph beside torch.sum's.
+     K2 runs at the step's bitmaps up to MobileNet dw2's dX (50,176 tiles),
+     below capacity too, three calls each; the group-major compact
+     pre-pass (queue_member) and the emit's NaN fix-up run alone against
+     their plain versions.  K6 and
      K7, on no training path, run at VGG16 conv4's dX and WG shapes, where
      they must also equal sparse_gemm at G = 1 bit for bit.  conv4's dX
      runs again with a NaN planted in its sigma-prime multiplier, whose
@@ -258,22 +265,56 @@ def kernel_phase(dev):
                                    lambda: re_.relu_encode(z, gran),
                                    lambda: torch.relu(z)))
 
-    # K2 queue builder: the conv2 dX tile bitmap (3136 x 1) and a (784 x 4)
-    # one, at full capacity and at a capacity below n_live.
-    for shape in ((3136, 1), (784, 4)):
+    # K2 queue builder: the conv2 dX tile bitmap (3136 x 1), a (784 x 4)
+    # one, and MobileNet's dw1 and dw2 dX bitmaps (G * Mb x 1: 25,088 and
+    # 50,176 tiles, several blocks of look-back), each at full capacity and
+    # at a capacity below n_live; three calls each, so that a status word
+    # left stale by one call would show in the next.
+    for shape in ((3136, 1), (784, 4), (25088, 1), (50176, 1)):
         bm = (torch.rand(shape, device=dev, generator=gen) < 0.5) \
             .to(torch.int32)
         n_live = int(bm.sum())
         for cap in (bm.numel(), n_live // 2):
-            got = qb.build_queue_kernel(bm, capacity=cap)
+            got = [qb.build_queue_kernel(bm, capacity=cap) for _ in range(3)]
             want = qb.build_queue_plain(bm, cap)
-            ok = all(torch.equal(a, b) for a, b in zip(got, want))
+            ok = all(torch.equal(a, b) for q in got for a, b in zip(q, want))
             report("queue_builder", f"{shape[0]}x{shape[1]} cap {cap}",
                    0.0 if ok else 1.0, ok,
                    time_ms(lambda: qb.build_queue_kernel(bm, capacity=cap)),
                    time_ms(lambda: qb.build_queue_plain(bm, cap)),
                    time_ms(lambda: torch.nonzero(bm)),
-                   4.0 * bm.numel() + 8.0 * cap + 4.0, 0.0)
+                   4.0 * bm.numel() + 8.0 * cap + 4.0, 0.0,
+                   plan={"device_ms": device_ms(
+                       lambda: qb.build_queue_kernel(bm, capacity=cap))})
+
+    # The group-major compact pre-pass alone at dw1's dX queue (25,088
+    # tiles, about half live) and overflowing: the bitmap zero-filled, then
+    # marked; the library call is index_put_ on the live slots' indices,
+    # decoded beforehand.
+    bm = (torch.rand((25088, 1), device=dev, generator=gen) < 0.5) \
+        .to(torch.int32)
+    for cap in (bm.numel(), int(bm.sum()) // 2):
+        fi, jj, nl = qb.build_queue_kernel(bm, capacity=cap)
+        member = torch.zeros(bm.numel(), dtype=torch.int32, device=dev)
+        mm.queue_member(fi, jj, nl, member, n_cols=1)
+        want = mm.queue_member_plain(fi, jj, nl, torch.zeros_like(member),
+                                     n_cols=1)
+        ok = torch.equal(member, want) and (
+            int(want.sum()) == (int(nl[0]) if cap == bm.numel() else 0))
+        live = int(nl[0]) if int(nl[0]) <= cap else 0
+        rows_l, cols_l = fi[:live].long(), jj[:live].long()
+        one = torch.ones((), dtype=torch.int32, device=dev)
+        report("queue_member", f"dw1 dX queue 25088 tiles cap {cap}",
+               0.0 if ok else 1.0, ok,
+               time_ms(lambda: mm.queue_member(fi, jj, nl, member,
+                                               n_cols=1)),
+               time_ms(lambda: mm.queue_member_plain(
+                   fi, jj, nl, torch.zeros_like(member), n_cols=1)),
+               time_ms(lambda: member.view(-1, 1).index_put_(
+                   (rows_l, cols_l), one)),
+               4.0 * (bm.numel() + 3 * live + 1), 0.0,
+               plan={"device_ms": device_ms(lambda: mm.queue_member(
+                   fi, jj, nl, member, n_cols=1))})
 
     def gemm_case(g, m, k, n, block, live=0.5, sigma=True, a_t=False,
                   b_mask=True, out_mask=True, a_grouped=False,
@@ -388,31 +429,35 @@ def kernel_phase(dev):
 
     def reduce_case(case, a, b, qmask, am, bmk, mult, block, emit, queue):
         """The split-K reduce alone, after one compact GEMM pass, against
-        its plain version: the partials added in split order, x sigma-prime
+        its plain version: the partials added in the reduce plan's order
+        (bit-equal) and in split order (within KERNEL_RTOL), x sigma-prime
         over the live tiles, the bitmap."""
-        g, m, _ = a.shape
+        g, m, k = a.shape
         n = b.shape[2]
         fi, jj, nl = queue
         out = torch.zeros(g, m, n, device=dev)
         bits = None if emit is None else torch.zeros(
             g, -(-m // emit[0]), -(-n // emit[1]), dtype=torch.int32,
             device=dev)
-        args, splits, (ws, _) = mm.launch_args(
-            mm._COMPACT, a, b, out, bits, None, am, bmk, mult, fi, jj, nl, fi.numel(),
-            block, emit)
+        args, rargs, splits, (ws, _member) = mm.launch_args(
+            mm._COMPACT, a, b, out, bits, None, am, bmk, mult, fi, jj, nl,
+            fi.numel(), block, emit)
+        plan = mm.reduce_plan(mm.gemm_path(g, m, k, n, block), g, m, n,
+                              splits)
         lib = _build.load()
         _build.check(lib.masked_gemm_launch(*args), "masked_gemm")
         check(splits > 1, f"{case}: split-K plan ({splits} splits)")
 
         def reduce():
-            _build.check(lib.masked_gemm_reduce_launch(*args), "reduce")
+            # on the current stream: the capturing one inside a CUDA graph
+            _build.check(lib.masked_gemm_reduce_launch(
+                *rargs[:-1], _build.stream_handle(dev)), "reduce")
 
-        def plain():
-            total = ws[0].clone()
-            for z in range(1, splits):
-                total += ws[z]
-            live = ref.expand_block_mask(qmask, block[0], block[2])[
-                :, :m, :n].bool()
+        live = ref.expand_block_mask(qmask, block[0], block[2])[
+            :, :m, :n].bool()
+
+        def plain(order=plan):
+            total = mm.splitk_reduce_plain(ws, order)
             if mult is not None:
                 total = total * mult
             return torch.where(live, total, torch.zeros_like(total))
@@ -423,15 +468,59 @@ def kernel_phase(dev):
         ok = ok and torch.equal(out, want)
         if emit is not None:
             ok = ok and torch.equal(bits, mm.emit_bits(want, emit))
-        live_el = float(ref.expand_block_mask(qmask, block[0], block[2])[
-            :, :m, :n].sum())
+        _, seq_rel, seq_ok = rel_err(out, plain(mm.ReducePlan(1, 256, 1)))
+        check(seq_ok, f"{case}: the reduce is within {KERNEL_RTOL:g} x "
+              f"max|plain| of the sequential split-order sum ({seq_rel:.2e})")
+        live_el = float(live.sum())
         bytes_ = 4.0 * (splits * live_el + (live_el if mult is not None
                                             else 0.0) + g * m * n
                         + (0 if bits is None else bits.numel()))
         report("splitk_reduce", f"{case}, {splits} splits", err, ok,
                time_ms(reduce), time_ms(plain),
                time_ms(lambda: torch.sum(ws, 0)), bytes_,
-               (splits - 1) * live_el, rel, {"splits": splits})
+               (splits - 1) * live_el, rel,
+               {"splits": splits, "reduce_plan": plan._asdict(),
+                "device_ms": device_ms(reduce),
+                "library_device_ms": device_ms(lambda: torch.sum(ws, 0))})
+
+    def fixup_case():
+        """emit_nan_fixup: an unsplit emitting launch at conv4's dX shape
+        with a NaN planted in sigma-prime's multiplier raises the device
+        flag, and the fix-up that the launcher runs after it clears the NaN
+        cell's bit; then the fix-up alone, which reads the whole output
+        whatever the flag says, against its plain version, on the bits as
+        the epilogue leaves them (the NaN cell set)."""
+        g, m, k, n, block, emit = 1, 100352, 1152, 128, (128,) * 3, (1, 128)
+        a, b, om, am, _, mult = gemm_case(g, m, k, n, block, b_mask=False)
+        gi, ti, tj = om.nonzero()[0].tolist()
+        mult[gi, ti * block[0] + 1, tj * block[2]] = float("nan")
+        out = torch.zeros(g, m, n, device=dev)
+        bits = torch.zeros(g, m, 1, dtype=torch.int32, device=dev)
+        args, _, splits, _ = mm.launch_args(
+            mm._PREDICATED, a, b, out, bits, om, am, None, mult, None, None,
+            None, 0, block, emit)
+        lib = _build.load()
+        _build.check(lib.masked_gemm_launch(*args), "masked_gemm")
+        torch.cuda.synchronize()
+        cell = (gi, ti * block[0] + 1, 0)
+        check(splits == 1 and int(bits[cell]) == 0 and torch.equal(
+            bits, mm.emit_nan_fixup_plain(
+                out, mm.emit_bits(out.nan_to_num(0.0), emit), emit)),
+            "emit_nan_fixup: the launcher's fix-up clears the NaN cell")
+        raw = bits.clone()
+        raw[cell] = 1
+        want = mm.emit_nan_fixup_plain(out, raw.clone(), emit)
+        work = raw.clone()
+        mm.emit_nan_fixup(out, work, emit)
+        torch.cuda.synchronize()
+        ok = torch.equal(work, want) and int(work[cell]) == 0
+        report("emit_nan_fixup", "conv4 dX 100352x1152x128, a NaN in one "
+               "cell", 0.0 if ok else 1.0, ok,
+               time_ms(lambda: mm.emit_nan_fixup(out, work, emit)),
+               time_ms(lambda: mm.emit_nan_fixup_plain(out, work, emit)),
+               None, 4.0 * g * m * n + 4.0, 0.0,
+               plan={"device_ms": device_ms(
+                   lambda: mm.emit_nan_fixup(out, work, emit))})
 
     # K3/K4: conv4's dX GEMM (sigma-prime + bitmap emit, ~50% live masks),
     # a conv4-shaped WG GEMM (A = patches^T through strides), and a ragged
@@ -463,7 +552,11 @@ def kernel_phase(dev):
              out_mask=False, reduce_row=True)
     run_gemm("", "dw1 WG 32x(9x100352x1) block 9x128x1", 32, 9, 100352, 1,
              (9, 128, 1), None, sigma=False, a_grouped_t=True,
-             out_mask=False)
+             out_mask=False, reduce_row=True)
+    # A 2-split reduce with sigma-prime and the bitmap emit: conv9's dX.
+    run_gemm("", "conv9 dX 6272x4608x512", 1, 6272, 4608, 512,
+             (128, 128, 128), (1, 128), b_mask=False, reduce_row=True)
+    fixup_case()
 
     # K5 bitmap_scan: conv0's input (the image, gran (1, 1)), the head's
     # input (gran (128, 128)) and a ragged signed case; bits exact.  The
@@ -781,6 +874,8 @@ def launch_contract(rec, scenario, tag):
     check(launches.get("splitk_reduce", 0) <= _sum(c, "gemm:compact:")
           + _sum(c, "gemm:predicated:"),
           f"{tag}: splitk_reduce launches <= K3/K4 dispatches")
+    check(launches.get("emit_nan_fixup", 0) == c.get("emit:grad", 0),
+          f"{tag}: emit_nan_fixup launches == emit:grad")
     if scenario == "IN_OUT_WR":
         check(c.get("queue:prefix_sum", 0) == _sum(c, "gemm:compact:") > 0,
               f"{tag}: queue:prefix_sum == gemm:compact:*")
@@ -815,10 +910,11 @@ SCHEDULE = {"IN_OUT_WR": "compact", "IN_OUT": "predicated"}
 # Each path's kernels: the main-path run must launch every one of them.
 PATHS = {"vgg16": (vgg16_contract, False, None,
                    ("relu_encode", "queue_builder", "compact_gemm",
-                    "predicated_gemm", "splitk_reduce")),
+                    "predicated_gemm", "splitk_reduce", "emit_nan_fixup")),
          "mobilenet": (mobilenet_contract, True, 1,
                        ("relu_encode", "queue_builder", "compact_gemm",
-                        "predicated_gemm", "splitk_reduce", "bitmap_scan"))}
+                        "predicated_gemm", "splitk_reduce", "bitmap_scan",
+                        "queue_member", "emit_nan_fixup"))}
 
 
 def end_to_end(dev, net, image_size=224, width=1.0, num_classes=1000,
@@ -1001,6 +1097,8 @@ def main():
                "compact_gemm": (mm_cu, f"{mm_py}:492"),
                "predicated_gemm": (mm_cu, f"{mm_py}:347"),
                "splitk_reduce": (mm_cu, f"{mm_py}:492"),
+               "queue_member": (mm_cu, f"{mm_py}:492"),
+               "emit_nan_fixup": (mm_cu, f"{mm_py}:492"),
                "bitmap_scan": (encoder,
                                "src/repro/kernels/bitmap_scan.py:61"),
                "masked_matmul_2d": (mm_cu, f"{mm_py}:172"),

@@ -59,9 +59,19 @@
 // k blocks on blockIdx.z (split z takes k blocks
 // [z*Kb/S, (z+1)*Kb/S)).  Each slice writes its raw partial tile into a
 // (S, G, M, N) workspace; the reduce launch enumerates the tiles exactly as
-// the GEMM launch did, adds the S partials in split order (no atomics, so
+// the GEMM launch did, adds the S partials in a fixed order (no atomics, so
 // the bits do not change from run to run), applies the epilogue and writes
-// the live tiles.
+// the live tiles.  The reduce is bound by bytes: S partials of every live
+// output, read once (conv2's WG: 11.6 MB, 3.5 us at 3.35 TB/s), and it
+// needs a few MB of loads in flight to approach that rate.  Its plan
+// (kernels/masked_matmul.reduce_plan, from the shape and S alone) cuts the
+// splits into C chunks; a thread takes one chunk of 4 adjacent outputs,
+// reads it as float4 (where N, bn and the workspace allow) with a batch of
+// loads issued before its adds, and sums it in split order; the C chunk
+// sums are added in chunk order through shared memory.  Group k lays its
+// blocks over the flat (G, M, N) workspace across the groups (each group's
+// tile is 1-32 outputs); the standard path keeps one tile per grid x so
+// that tile_of decides the schedule and the overflow on the device.
 #include <cuda_runtime.h>
 
 namespace {
@@ -76,7 +86,7 @@ constexpr int kRowsMaxKN = 64;                // group rows: K * N of B
 constexpr int kRowsStage = 256;               // group rows: rows * N staged
 constexpr int kRowsMaxRows = 64;
 constexpr int kKMaxMN = 32;                   // group k: accumulators
-constexpr int kReduceRows = 8;                // reduce: rows per block
+constexpr int kReduceLoads = 8;               // reduce: loads in flight
 
 constexpr int kFixupBlocks = 264;             // NaN fix-up: 2 per SM at most
 
@@ -114,6 +124,9 @@ struct GemmArgs {
   int nsub_n;
   int mode, path, splits, rows;
   int a_kcontig, b_ncontig;
+  int r_chunks, r_quads, r_grid;  // the reduce plan (kernels/masked_matmul.py)
+  bool r_vec;                     // the reduce reads ws as float4
+  bool r_vec_out;                 // ... and mult and out, where r_vec
 };
 
 // The tile (g, i, j) of standard-path block t, or false when the block has
@@ -454,83 +467,221 @@ group_k_kernel(const GemmArgs p) {
   }
 }
 
-// Group-major compact pre-pass: member[fi[s], jj[s]] = 1 for the queue's
-// slots s < n_live, nothing on overflow.  member arrives zeroed.
-__global__ void queue_member_kernel(const GemmArgs p) {
-  const int nl = *p.n_live;
-  if (nl > p.cap) return;
+// Group-major compact pre-pass: member[fi[s] * Nb + jj[s]] = 1 for the
+// queue's slots s < n_live, nothing on overflow.  member arrives zeroed.
+__global__ void queue_member_kernel(const int* __restrict__ q_fi,
+                                    const int* __restrict__ q_jj,
+                                    const int* __restrict__ n_live, int cap,
+                                    int Nb, int* __restrict__ member) {
+  const int nl = *n_live;
+  if (nl > cap) return;
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < nl;
        s += gridDim.x * blockDim.x)
-    p.member[(long long)p.q_fi[s] * p.Nb + p.q_jj[s]] = 1;
+    member[(long long)q_fi[s] * Nb + q_jj[s]] = 1;
 }
 
-// The split-K reduce: block (t, y, z) enumerates the tile that GEMM block
-// (t, y) wrote (queue slot, out_mask bit or membership bit) and takes
-// kReduceRows of its rows; it adds the partials in split order and applies
-// the epilogue.
+// Splits [lo, hi) of the up to 4 adjacent workspace floats at offset o,
+// added in split order: a float4 load each where `vec` says the unit is 4
+// whole, 16-byte aligned floats, else cnt scalar loads.  Loads go out in
+// batches of kReduceLoads, all of a batch before its adds.
+__device__ __forceinline__ float4 ws_load(const float* w, bool vec, int cnt) {
+  if (vec) return *reinterpret_cast<const float4*>(w);
+  float4 r;
+  r.x = w[0];
+  r.y = cnt > 1 ? w[1] : 0.f;
+  r.z = cnt > 2 ? w[2] : 0.f;
+  r.w = cnt > 3 ? w[3] : 0.f;
+  return r;
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+template <int kLoads>
+__device__ __forceinline__ float4 chunk_sum(const float* ws, long long slice,
+                                            long long o, int lo, int hi,
+                                            bool vec, int cnt) {
+  float4 acc = ws_load(ws + lo * slice + o, vec, cnt);
+  for (int s0 = lo + 1; s0 < hi; s0 += kLoads) {
+    float4 r[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k)
+      if (s0 + k < hi) r[k] = ws_load(ws + (s0 + k) * slice + o, vec, cnt);
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k)
+      if (s0 + k < hi) add4(acc, r[k]);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The split-K reduce.  A work unit is up to 4 adjacent outputs and one
+// chunk of the splits; thread (c, q) = (threadIdx.x / Q, % Q) takes chunk c
+// of unit q of its block, so a warp reads consecutive units of one split.
+// Chunk c holds splits [c S / C, (c + 1) S / C), summed in split order; the
+// C chunk sums of a unit are added in chunk order through shared memory.
+//   standard  block (t, y, z): the tile that GEMM block (t, y) wrote
+//             (tile_of: queue slot or out_mask bit), units z Q ... of its
+//             128 x 128 piece, 4 along n in each row;
+//   group k   block x: units x Q ... of the flat (G, M, N) workspace, which
+//             runs across the groups (each group one M x N tile), every
+//             output written where its group's tile is live (gm_live).
+// kLoads: the loads of a batch, the splits of a chunk after its first
+// rounded up to a power of two (at most kReduceLoads), so that a reduce of
+// few splits holds no registers for loads it never makes.
+template <int kLoads>
 __global__ void __launch_bounds__(kThreads)
 splitk_reduce_kernel(const GemmArgs p) {
-  int g, i, j;
-  const long long t = blockIdx.x;
-  if (p.path != kStandard) {
+  __shared__ float4 red[kThreads];
+  const int Q = p.r_quads;
+  const int c = threadIdx.x / Q;
+  const int q = threadIdx.x - c * Q;
+  const long long slice = (long long)p.G * p.M * p.N;
+  int g = 0, i = 0, j = 0, m = 0, n = 0, cnt = 0;
+  long long o = 0;
+  unsigned live = 0;  // bit e: output e of the unit is written
+  bool vec = false;
+  if (p.path == kStandard) {
+    if (!tile_of(p, blockIdx.x, g, i, j)) return;
+    const int sub_i = blockIdx.y / p.nsub_n;
+    const int sub_j = blockIdx.y - sub_i * p.nsub_n;
+    const int m0 = i * p.bm + sub_i * TM;
+    const int m_end = min(min(i * p.bm + p.bm, m0 + TM), p.M);
+    const int n0 = j * p.bn + sub_j * TN;
+    const int n_end = min(min(j * p.bn + p.bn, n0 + TN), p.N);
+    const int upr = (n_end - n0 + 3) >> 2;  // units per row
+    const int units = max(m_end - m0, 0) * max(upr, 0);
+    const int u = blockIdx.z * Q + q;
+    if ((int)blockIdx.z * Q >= units) return;
+    if (u < units) {
+      const int r = u / upr;
+      m = m0 + r;
+      n = n0 + 4 * (u - r * upr);
+      cnt = min(4, n_end - n);
+      o = ((long long)g * p.M + m) * p.N + n;
+      live = (1u << cnt) - 1u;
+      vec = p.r_vec && cnt == 4;
+    }
+  } else {
     if (!gm_runs(p)) return;
-    const long long per_g = (long long)p.Mb * p.Nb;
-    g = (int)(t / per_g);
-    const int rem = (int)(t - g * per_g);
-    i = rem / p.Nb;
-    j = rem - i * p.Nb;
-    if (!gm_live(p, g, i, j)) return;
-  } else if (!tile_of(p, t, g, i, j)) {
+    const long long u = (long long)blockIdx.x * Q + q;
+    o = 4 * u;
+    if (o < slice) {
+      cnt = (int)min(4LL, slice - o);
+      const int mn = p.M * p.N;
+      g = (int)(o / mn);
+      const int rem = (int)(o - (long long)g * mn);
+      m = rem / p.N;
+      n = rem - m * p.N;
+      for (int e = 0, ge = g, re = rem; e < cnt; ++e) {
+        if (gm_live(p, ge, 0, 0)) live |= 1u << e;
+        if (++re == mn) {
+          re = 0;
+          ++ge;
+        }
+      }
+      vec = p.r_vec && cnt == 4;
+    }
+  }
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) {
+    const int lo = (int)((long long)c * p.splits / p.r_chunks);
+    const int hi = (int)((long long)(c + 1) * p.splits / p.r_chunks);
+    v = chunk_sum<kLoads>(p.ws, slice, o, lo, hi, vec, cnt);
+  }
+  if (p.r_chunks > 1) {
+    red[threadIdx.x] = v;
+    __syncthreads();
+    if (c != 0) return;
+    for (int k = 1; k < p.r_chunks; ++k) add4(v, red[k * Q + q]);
+  }
+  if (vec && live == 0xfu && p.r_vec_out) {
+    // 4 whole outputs: float4 sigma-prime and store; on the standard path
+    // with ec % 4 == 0 (n % 4 == 0 here) they share one bitmap cell.
+    if (p.mult != nullptr) {
+      const float4 mu = *reinterpret_cast<const float4*>(p.mult + o);
+      v.x *= mu.x;
+      v.y *= mu.y;
+      v.z *= mu.z;
+      v.w *= mu.w;
+    }
+    float* dst = p.mode == kCompactOut
+                     ? p.out + ((long long)blockIdx.x * p.bm + (m - i * p.bm)) *
+                                   p.bn + (n - j * p.bn)
+                     : p.out + o;
+    *reinterpret_cast<float4*>(dst) = v;
+    if (p.bits == nullptr) return;
+    if (p.path == kStandard && p.ec % 4 == 0) {
+      const float a = fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                            fmaxf(fabsf(v.z), fabsf(v.w)));
+      if (a > 0.f)
+        p.bits[((long long)g * p.Mc + m / p.er) * p.Nc + n / p.ec] = 1;
+      if (v.x != v.x || v.y != v.y || v.z != v.z || v.w != v.w)
+        g_emit_nan = 1;
+      return;
+    }
+    for (int e = 0; e < 4; ++e) {
+      emit_bit(p, g, m, n, lane4(v, e));
+      if (++n == p.N) {
+        n = 0;
+        if (++m == p.M) {
+          m = 0;
+          ++g;
+        }
+      }
+    }
     return;
   }
-  const int sub_i = blockIdx.y / p.nsub_n;
-  const int sub_j = blockIdx.y - sub_i * p.nsub_n;
-  // blockIdx.z takes kReduceRows rows of the 128 x 128 piece.
-  const int tile_m0 = i * p.bm + sub_i * TM;
-  const int m0 = tile_m0 + blockIdx.z * kReduceRows;
-  const int m_end = min(min(min(i * p.bm + p.bm, tile_m0 + TM),
-                            m0 + kReduceRows), p.M);
-  const int n0 = j * p.bn + sub_j * TN;
-  const int n_end = min(min(j * p.bn + p.bn, n0 + TN), p.N);
-  if (m0 >= m_end || n0 >= n_end) return;
-  const int w = n_end - n0;
-  const int count = (m_end - m0) * w;
-  const long long slice = (long long)p.G * p.M * p.N;
-  for (int e = threadIdx.x; e < count; e += kThreads) {
-    const int m = m0 + e / w;
-    const int n = n0 + e % w;
-    const long long o = ((long long)g * p.M + m) * p.N + n;
-    const float* w0 = p.ws + o;
-    float v = w0[0];
-#pragma unroll 8
-    for (int s = 1; s < p.splits; ++s) v += w0[s * slice];
-    if (p.mode == kCompactOut) {
-      if (p.mult != nullptr) v *= p.mult[o];
-      p.out[(t * p.bm + (m - i * p.bm)) * p.bn + (n - j * p.bn)] = v;
-    } else {
-      emit(p, o, g, m, n, v);
+  for (int e = 0; e < cnt; ++e) {
+    if (live & (1u << e)) {
+      float x = lane4(v, e);
+      if (p.mode == kCompactOut) {
+        if (p.mult != nullptr) x *= p.mult[o + e];
+        p.out[((long long)blockIdx.x * p.bm + (m - i * p.bm)) * p.bn +
+              (n - j * p.bn)] = x;
+      } else {
+        emit(p, o + e, g, m, n, x);
+      }
+    }
+    if (++n == p.N) {  // the next output: group k's units run across rows
+      n = 0;
+      if (++m == p.M) {
+        m = 0;
+        ++g;
+      }
     }
   }
 }
 
 // After an emitting launch: nothing when no output was NaN (the common
-// case, one flag read per block); else bits[cell] = 0 for every cell whose
-// output holds a NaN.  The whole output is read then: the caller zero-
-// filled it and the launch wrote only live tiles, so a NaN in it is exactly
-// a NaN the epilogue met.  The last block to finish clears the flag.
+// case, one flag read per block); else (or with force) bits[cell] = 0 for
+// every cell whose output holds a NaN.  The whole output is read then: the
+// caller zero-filled it and the launch wrote only live tiles, so a NaN in
+// it is exactly a NaN the epilogue met.  The last block to finish clears
+// the flag.
 __global__ void __launch_bounds__(kThreads)
-emit_nan_fixup_kernel(const GemmArgs p) {
-  if (*(volatile int*)&g_emit_nan == 0) return;
-  const long long total = (long long)p.G * p.M * p.N;
+emit_nan_fixup_kernel(const float* __restrict__ out, int* __restrict__ bits,
+                      int G, int M, int N, int er, int ec, bool force) {
+  if (!force && *(volatile int*)&g_emit_nan == 0) return;
+  const long long total = (long long)G * M * N;
+  const int Mc = (M + er - 1) / er;
+  const int Nc = (N + ec - 1) / ec;
   for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x;
        o < total; o += (long long)gridDim.x * kThreads) {
-    const float v = p.out[o];
+    const float v = out[o];
     if (v != v) {
-      const long long gm = o / p.N;
-      const int n = (int)(o - gm * p.N);
-      const int g = (int)(gm / p.M);
-      const int m = (int)(gm - (long long)g * p.M);
-      p.bits[((long long)g * p.Mc + m / p.er) * p.Nc + n / p.ec] = 0;
+      const long long gm = o / N;
+      const int n = (int)(o - gm * N);
+      const int g = (int)(gm / M);
+      const int m = (int)(gm - (long long)g * M);
+      bits[((long long)g * Mc + m / er) * Nc + n / ec] = 0;
     }
   }
   __syncthreads();
@@ -544,18 +695,36 @@ emit_nan_fixup_kernel(const GemmArgs p) {
   }
 }
 
-int launch_fixup(const GemmArgs& p, cudaStream_t st) {
-  const long long total = (long long)p.G * p.M * p.N;
-  const int blocks = (int)min((total + kThreads - 1) / kThreads,
-                              (long long)kFixupBlocks);
-  emit_nan_fixup_kernel<<<blocks, kThreads, 0, st>>>(p);
-  return (int)cudaGetLastError();
-}
-
 int pow2_at_least(int n) {
   int p = 1;
   while (p < n) p *= 2;
   return p;
+}
+
+// The group-major compact pre-pass: member, (tiles,) int32, zero-filled and
+// then marked at the queue's live tiles.
+int launch_member(const int* q_fi, const int* q_jj, const int* n_live,
+                  int cap, int Nb, int* member, long long tiles,
+                  cudaStream_t st) {
+  const cudaError_t err = cudaMemsetAsync(member, 0, tiles * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  if (cap <= 0) return 0;
+  const int blocks = (int)min((cap + kThreads - 1LL) / kThreads, 1024LL);
+  queue_member_kernel<<<blocks, kThreads, 0, st>>>(q_fi, q_jj, n_live, cap,
+                                                   Nb, member);
+  return (int)cudaGetLastError();
+}
+
+// The NaN fix-up of an emitting launch's out (G, M, N) and bits.
+int launch_fixup(const float* out, int* bits, int G, int M, int N, int er,
+                 int ec, bool force, cudaStream_t st) {
+  const long long total = (long long)G * M * N;
+  if (total == 0) return 0;
+  const int blocks = (int)min((total + kThreads - 1) / kThreads,
+                              (long long)kFixupBlocks);
+  emit_nan_fixup_kernel<<<blocks, kThreads, 0, st>>>(out, bits, G, M, N, er,
+                                                     ec, force);
+  return (int)cudaGetLastError();
 }
 
 int fill_args(GemmArgs& p, const float* A, long long sAg, long long sAm,
@@ -566,6 +735,7 @@ int fill_args(GemmArgs& p, const float* A, long long sAg, long long sAm,
               int* member, int cap, int G, int M, int K, int N, int bm,
               int bk, int bn, int er, int ec, int mode, int path,
               int splits) {
+  p = GemmArgs{};
   p.A = A;
   p.sAg = sAg;
   p.sAm = sAm;
@@ -635,11 +805,14 @@ int fill_args(GemmArgs& p, const float* A, long long sAg, long long sAm,
 // compact, at G = 1, into the (cap, bm, bn) compacted output).  With mode
 // 0 and a non-null n_live it is the compact path's overflow fallback and
 // runs only when n_live > cap.  path 0 = standard, 1 = group rows, 2 =
-// group k; group-major compact launches need a (G, Mb, Nb) int32 member
-// buffer (zeroed and filled here).  With splits > 1 the launch writes raw
-// partials into ws, (splits, G, M, N) float32, and masked_gemm_reduce_launch
-// with the same arguments finishes the product.  er/ec are ignored when
-// bits is null.  Returns the cudaError_t of the launch.
+// group k; group-major compact launches read a (G, Mb, Nb) int32 member
+// bitmap, (G, Mb, Nb) int32, that the launch zero-fills and marks first
+// (queue_member_kernel).  With splits > 1 the launch writes raw partials
+// into ws, (splits, G, M, N) float32, and masked_gemm_reduce_launch with
+// the same arguments and the reduce plan finishes the product.  er/ec are
+// ignored when bits is null.  An emitting launch that is not split ends
+// with the NaN fix-up (emit_nan_fixup_kernel).  Returns the cudaError_t of
+// the launches.
 extern "C" int masked_gemm_launch(
     const float* A, long long sAg, long long sAm, long long sAk,
     const float* B, long long sBg, long long sBk, long long sBn, float* out,
@@ -660,11 +833,9 @@ extern "C" int masked_gemm_launch(
   if (path != kStandard) {
     const long long gchunks = (G + kLanes - 1) / kLanes;
     if (mode == kCompact) {
-      const long long tiles = (long long)G * p.Mb * p.Nb;
-      const cudaError_t err = cudaMemsetAsync(member, 0, tiles * sizeof(int), st);
-      if (err != cudaSuccess) return (int)err;
-      const int blocks = (int)min((cap + kThreads - 1LL) / kThreads, 1024LL);
-      queue_member_kernel<<<blocks, kThreads, 0, st>>>(p);
+      const int err = launch_member(q_fi, q_jj, n_live, cap, p.Nb, member,
+                                    (long long)G * p.Mb * p.Nb, st);
+      if (err != 0) return err;
     }
     if (path == kGroupRows) {
       const long long blocks = gchunks * ((M + p.rows - 1) / p.rows);
@@ -697,12 +868,16 @@ extern "C" int masked_gemm_launch(
   const int err = (int)cudaGetLastError();
   // A split launch emits nothing: its reduce does, and the fix-up follows it.
   if (err != 0 || bits == nullptr || splits > 1) return err;
-  return launch_fixup(p, st);
+  return launch_fixup(out, bits, G, M, N, p.er, p.ec, false, st);
 }
 
-// The split-K reduce, launched after masked_gemm_launch with the same
-// arguments (splits > 1): the partials in ws summed in split order, the
-// epilogue, the live tiles written.
+// The split-K reduce, launched after masked_gemm_launch with its arguments
+// (splits > 1) and the reduce plan: the partials in ws summed in the plan's
+// order (r_chunks chunks of the splits, each in split order, then the
+// chunks in chunk order; r_quads units of 4 outputs a block, r_chunks *
+// r_quads = 256 threads), the epilogue, the live tiles written.  The grid
+// is (tiles or slots, 128 x 128 pieces, r_grid) on the standard path and
+// (r_grid) on group k.  An emitting reduce ends with the NaN fix-up.
 extern "C" int masked_gemm_reduce_launch(
     const float* A, long long sAg, long long sAm, long long sAk,
     const float* B, long long sBg, long long sBk, long long sBn, float* out,
@@ -710,26 +885,73 @@ extern "C" int masked_gemm_reduce_launch(
     const float* mult, const int* q_fi, const int* q_jj, const int* n_live,
     float* ws, int* member, int cap, int G, int M, int K, int N, int bm,
     int bk, int bn, int er, int ec, int mode, int path, int splits,
-    void* stream) {
+    int r_chunks, int r_quads, int r_grid, void* stream) {
   GemmArgs p;
   const int bad = fill_args(p, A, sAg, sAm, sAk, B, sBg, sBk, sBn, out, bits,
                             out_mask, a_mask, b_mask, mult, q_fi, q_jj,
                             n_live, ws, member, cap, G, M, K, N, bm, bk, bn,
                             er, ec, mode, path, splits);
   if (bad) return bad;
-  if (splits < 2) return (int)cudaErrorInvalidValue;
+  if (splits < 2 || r_chunks < 1 || r_chunks > splits || r_quads < 1 ||
+      r_chunks * r_quads != kThreads || r_grid < 1)
+    return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0 || G == 0 || (mode != kPredicated && cap == 0))
     return 0;
-  const long long nsub = (long long)((bm + TM - 1) / TM) * p.nsub_n;
-  const long long tiles = (path == kStandard && mode != kPredicated)
-                              ? (long long)cap
-                              : (long long)G * p.Mb * p.Nb;
-  if (tiles > 0x7fffffffLL || nsub > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tiles, (unsigned)nsub,
-                  (unsigned)((min(bm, TM) + kReduceRows - 1) / kReduceRows));
-  splitk_reduce_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
+  p.r_chunks = r_chunks;
+  p.r_quads = r_quads;
+  p.r_grid = r_grid;
+  // float4 workspace loads: a unit starts at a multiple of 4 of every
+  // split's slice, which needs a 16-byte aligned ws and a slice of whole
+  // float4s: on group k, G * M * N % 4 == 0 (units run over the flat
+  // workspace); on the standard path N % 4 == 0 and bn % 4 == 0 (units
+  // start at a multiple of 4 of their row).
+  p.r_vec = ((unsigned long long)ws & 15) == 0 &&
+            (path == kGroupK ? (long long)G * M * N % 4 == 0
+                             : N % 4 == 0 && bn % 4 == 0);
+  p.r_vec_out = ((unsigned long long)out & 15) == 0 &&
+                ((unsigned long long)mult & 15) == 0;
+  dim3 grid((unsigned)r_grid);
+  if (path == kStandard) {
+    const long long nsub = (long long)((bm + TM - 1) / TM) * p.nsub_n;
+    const long long tiles =
+        mode != kPredicated ? (long long)cap : (long long)G * p.Mb * p.Nb;
+    if (tiles > 0x7fffffffLL || nsub > 65535 || r_grid > 65535)
+      return (int)cudaErrorInvalidConfiguration;
+    grid = dim3((unsigned)tiles, (unsigned)nsub, (unsigned)r_grid);
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (pow2_at_least((splits + r_chunks - 1) / r_chunks - 1)) {
+    case 1: splitk_reduce_kernel<1><<<grid, kThreads, 0, st>>>(p); break;
+    case 2: splitk_reduce_kernel<2><<<grid, kThreads, 0, st>>>(p); break;
+    case 4: splitk_reduce_kernel<4><<<grid, kThreads, 0, st>>>(p); break;
+    default:
+      splitk_reduce_kernel<kReduceLoads><<<grid, kThreads, 0, st>>>(p);
+      break;
+  }
   const int err = (int)cudaGetLastError();
   if (err != 0 || bits == nullptr) return err;
-  return launch_fixup(p, (cudaStream_t)stream);
+  return launch_fixup(out, bits, G, M, N, p.er, p.ec, false, st);
+}
+
+// The group-major compact pre-pass alone, as masked_gemm_launch runs it:
+// member, (tiles,) int32, is zero-filled, then gets 1 at every tile of
+// queue slots s < n_live (fused row q_fi[s], column q_jj[s]); nothing when
+// n_live > cap (overflow).
+extern "C" int queue_member_launch(const int* q_fi, const int* q_jj,
+                                   const int* n_live, int cap, int Nb,
+                                   int* member, long long tiles,
+                                   void* stream) {
+  return launch_member(q_fi, q_jj, n_live, cap, Nb, member, tiles,
+                       (cudaStream_t)stream);
+}
+
+// The NaN fix-up alone, whatever the device flag says: bits[cell] = 0 for
+// every cell of out (G, M, N) whose output holds a NaN (bits is (G,
+// ceil(M/er), ceil(N/ec))).  The launchers run it after every emitting
+// launch, gated on the flag.
+extern "C" int emit_nan_fixup_launch(const float* out, int* bits, int G,
+                                     int M, int N, int er, int ec,
+                                     void* stream) {
+  return launch_fixup(out, bits, G, M, N, er, ec, true,
+                      (cudaStream_t)stream);
 }

@@ -35,6 +35,8 @@ def launch_counts() -> dict:
         "masked_matmul_2d": masked_matmul.masked_2d_launches,
         "compact_masked_matmul_2d": masked_matmul.compact_2d_launches,
         "splitk_reduce": masked_matmul.splitk_reduce_launches,
+        "queue_member": masked_matmul.queue_member_launches,
+        "emit_nan_fixup": masked_matmul.emit_fixup_launches,
     }
 
 
@@ -47,3 +49,5 @@ def reset_launch_counts() -> None:
     masked_matmul.masked_2d_launches = 0
     masked_matmul.compact_2d_launches = 0
     masked_matmul.splitk_reduce_launches = 0
+    masked_matmul.queue_member_launches = 0
+    masked_matmul.emit_fixup_launches = 0

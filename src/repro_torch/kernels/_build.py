@@ -35,13 +35,15 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of the launchers; every one returns its cudaError_t.
 _GEMM = [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+         _P, _P] + [_I] * 13 + [_P]
 SIGNATURES = {
     "bitmap_scan_launch": [_P, _L, _P] + [_I] * 9 + [_P],
     "relu_encode_launch": [_P, _P, _P] + [_I] * 9 + [_P],
     "queue_builder_launch": [_P, _I, _I, _I, _P, _P, _P, _P],
     "masked_gemm_launch": _GEMM,
-    "masked_gemm_reduce_launch": _GEMM,
+    "masked_gemm_reduce_launch": _GEMM[:-1] + [_I] * 3 + [_P],
+    "queue_member_launch": [_P, _P, _P, _I, _I, _P, _L, _P],
+    "emit_nan_fixup_launch": [_P, _P] + [_I] * 5 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

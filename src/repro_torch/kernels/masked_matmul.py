@@ -38,9 +38,19 @@ order):
     mask k blocks (``split_bounds``), as many as fit in three waves, each of
     at least ``MIN_KBLOCKS_PER_SPLIT``.  Each slice writes raw partial sums into a
     (splits, G, M, N) workspace, and a second launch, the reduce, adds them
-    in split order (no atomics: the same bits on every run), applies the
-    epilogue and writes the live tiles it enumerates exactly as the GEMM
-    launch did.  It is counted on ``splitk_reduce_launches``.
+    in the order ``reduce_plan`` fixes from the shape (chunks of the
+    splits in split order, then the chunks in order; no atomics: the same
+    bits on every run), applies the epilogue and writes the live tiles it
+    enumerates exactly as the GEMM launch did.  It is counted on
+    ``splitk_reduce_launches``.
+
+Two small launches go with the GEMM, inside its C launchers (one host
+call a launch, as the dispatch is host-bound): the group-major compact
+pre-pass (``queue_member_kernel``), and the NaN fix-up after every launch
+that emits a bitmap (``emit_nan_fixup_kernel``: a cell whose output holds
+a NaN gets bit 0, as in the reference).  ``_launch`` counts them from the
+launcher's return; ``queue_member`` and ``emit_nan_fixup`` launch each
+alone, against its plain version.
 
 K6 and K7 replace the 2-D TPU kernels ``masked_matmul_kernel``
 (``_mm_kernel``, ``_mm_epilogue_kernel``) and ``compact_masked_matmul_kernel``
@@ -58,7 +68,7 @@ fallback share one output and exactly one of them writes it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -71,6 +81,8 @@ predicated_launches = 0
 masked_2d_launches = 0
 compact_2d_launches = 0
 splitk_reduce_launches = 0
+queue_member_launches = 0
+emit_fixup_launches = 0
 
 _PREDICATED, _COMPACT, _COMPACT_OUT = 0, 1, 2
 
@@ -92,12 +104,52 @@ def emit_bits(out: torch.Tensor, emit_gran: Tuple[int, int]) -> torch.Tensor:
         .to(torch.int32)
 
 
+def _expand(mask, b0, b1, d0, d1):
+    """A (G, ·, ·) block mask as a (G, d0, d1) bool map of its elements."""
+    return ref.expand_block_mask(mask, b0, b1)[:, :d0, :d1].bool()
+
+
+def _zero_dead(x, mask, b0, b1):
+    return x if mask is None else torch.where(
+        _expand(mask, b0, b1, *x.shape[1:]), x, 0.0)
+
+
 def _masked_product(a, b, out_mask, a_mask, b_mask, block, mult):
-    """The dense product with dead operand blocks zeroed and dead output
-    tiles cleared — exactly the arithmetic the kernels do."""
+    """The product the kernels compute: Σ over the k blocks with a_mask ∧
+    b_mask of A·B, ×σ′, on the live output tiles; a dead tile is exactly 0.
+
+    Dead blocks and tiles are cleared with ``torch.where``, so a NaN or an
+    infinity in a skipped block never reaches the output, as in the kernels
+    (a multiply by the mask would give NaN).  On finite operands one
+    ``bmm`` of the zeroed operands sums in the kernels' terms.  Where a
+    live operand block holds a non-finite value and meets a dead partner
+    block (``inf · 0``), the k blocks are taken one at a time, each block
+    product kept only where both its blocks are live, in k-block order."""
     bm, bk, bn = block
-    return ref.grouped_masked_matmul(a, b, out_mask, a_mask, b_mask, bm=bm,
-                                     bk=bk, bn=bn, epilogue_mult=mult)
+    g, m, k = a.shape
+    n = b.shape[2]
+    af = _zero_dead(a.float(), a_mask, bm, bk)
+    bf = _zero_dead(b.float(), b_mask, bk, bn)
+    exact = (a_mask is not None or b_mask is not None) and not (
+        bool(af.isfinite().all()) and bool(bf.isfinite().all()))
+    if not exact:
+        out = torch.bmm(af, bf)
+    else:
+        nk = -(-k // bk)
+        ni, nj = -(-m // bm), -(-n // bn)
+        am = a_mask if a_mask is not None else torch.ones(
+            g, ni, nk, dtype=torch.int32, device=a.device)
+        bmk = b_mask if b_mask is not None else torch.ones(
+            g, nk, nj, dtype=torch.int32, device=a.device)
+        out = torch.zeros(g, m, n, dtype=torch.float32, device=a.device)
+        for kb in range(nk):
+            ks = slice(kb * bk, (kb + 1) * bk)
+            pair = am[:, :, kb, None] * bmk[:, None, kb, :]    # (G, Mb, Nb)
+            out += torch.where(_expand(pair, bm, bn, m, n),
+                               torch.bmm(af[:, :, ks], bf[:, ks, :]), 0.0)
+    if mult is not None:
+        out = out * mult.float()
+    return _zero_dead(out, out_mask, bm, bn)
 
 
 def _write(out, bits, value, emit_gran):
@@ -301,49 +353,192 @@ def grid_blocks(g: int, m: int, k: int, n: int,
 
 
 def split_bounds(kb: int, splits: int):
-    """The k-block range [lo, hi) of each split, as the kernel takes it."""
+    """The k-block range [lo, hi) of each split, as the kernel takes it
+    (and the split range of each chunk of the reduce)."""
     return [(z * kb // splits, (z + 1) * kb // splits)
             for z in range(splits)]
 
 
+class ReducePlan(NamedTuple):
+    """How the split-K reduce adds S partials (``reduce_plan``)."""
+    chunks: int     # C: split chunks, each summed in split order
+    quads: int      # work units of 4 adjacent outputs a block (256 / C)
+    grid: int       # blocks over the flat (G, M, N) workspace (group k),
+    #                 or over one 128 × 128 piece of a tile (standard)
+
+
+REDUCE_THREADS = 256
+REDUCE_LOADS = 8              # loads a thread issues before its adds
+REDUCE_MAX_CHUNKS = 64
+REDUCE_MIN_LOADS = 4          # splits a chunk keeps when C grows to fill
+REDUCE_FILL_THREADS = SM_COUNT * REDUCE_THREADS
+
+
+def reduce_plan(path: int, g: int, m: int, n: int, splits: int
+                ) -> ReducePlan:
+    """The split-K reduce's plan for a (G, M, N) output of ``splits``
+    partials on ``path``.  C doubles from 1 while a chunk holds more than
+    ``REDUCE_LOADS`` splits, so that every load of a thread is in flight at
+    once, or while the launch would have fewer threads than one block per
+    SM and each chunk would keep ``REDUCE_MIN_LOADS`` splits; so C = 1 at
+    small S (the FP/dX reduces of 2–7 splits sum in split order), and
+    conv2's WG (79 splits, 9,216 units) gets C = 16: all 11.6 MB in flight.
+    Never a function of the masks, the capacity or the live count, so every
+    schedule of one shape sums in one order."""
+    if splits < 2:
+        raise ValueError(f"a reduce needs 2 splits or more, got {splits}")
+    if path == GROUP_K:
+        units = -(-g * m * n // 4)
+    else:
+        units = g * m * -(-n // 4)
+    c = 1
+    while c < REDUCE_MAX_CHUNKS and 2 * c <= splits and (
+            -(-splits // c) > REDUCE_LOADS
+            or (units * c < REDUCE_FILL_THREADS
+                and splits // (2 * c) >= REDUCE_MIN_LOADS)):
+        c *= 2
+    quads = REDUCE_THREADS // c
+    if path == GROUP_K:
+        per = units
+    else:
+        per = min(m, REGISTER_TILE) * -(-min(n, REGISTER_TILE) // 4)
+    return ReducePlan(c, quads, max(1, -(-per // quads)))
+
+
+def splitk_reduce_plain(ws: torch.Tensor, plan: ReducePlan) -> torch.Tensor:
+    """The reduce's sum of a (S, G, M, N) workspace in the plan's order:
+    each chunk's splits in split order, then the chunk sums in chunk
+    order — the float32 adds the kernel does, so the two are bit-equal."""
+    total = None
+    for lo, hi in split_bounds(ws.shape[0], plan.chunks):
+        part = ws[lo].clone()
+        for z in range(lo + 1, hi):
+            part += ws[z]
+        total = part if total is None else total.add_(part)
+    return total
+
+
 def launch_args(mode, a, b, out, bits, out_mask, a_mask, b_mask, mult, fi,
                 jj, n_live, capacity, block, emit_gran):
-    """The C arguments of one GEMM launch and of its reduce launch, with
-    the split count and the buffers they point at (workspace, membership),
-    which must outlive the launches."""
+    """The C arguments of one GEMM launch and of its reduce launch (None
+    when the plan does not split K: the GEMM launch's, the reduce plan
+    before the stream), the split count, and the buffers they point at
+    (workspace, membership), which must outlive the launches."""
     g, m, k = a.shape
     n = b.shape[2]
     er, ec = emit_gran if emit_gran is not None else (1, 1)
     path = gemm_path(g, m, k, n, block)
     splits = split_plan(g, m, k, n, block)
-    ws = None if splits == 1 else torch.empty(
-        (splits, g, m, n), dtype=torch.float32, device=a.device)
+    ws = None
+    if splits > 1:
+        ws = torch.empty((splits, g, m, n), dtype=torch.float32,
+                         device=a.device)
     member = None
     if path != STANDARD and mode == _COMPACT:
         ni, _, nj = grid_shape((m, k, n), block)
         member = torch.empty(g * ni * nj, dtype=torch.int32, device=a.device)
+    stream = _build.stream_handle(a.device)
     args = (a.data_ptr(), a.stride(0), a.stride(1), a.stride(2),
             b.data_ptr(), b.stride(0), b.stride(1), b.stride(2),
             out.data_ptr(), _ptr(bits), _ptr(out_mask), _ptr(a_mask),
             _ptr(b_mask), _ptr(mult), _ptr(fi), _ptr(jj), _ptr(n_live),
             _ptr(ws), _ptr(member), capacity, g, m, k, n, *block, er, ec,
-            mode, path, splits, _build.stream_handle(a.device))
-    return args, splits, (ws, member)
+            mode, path, splits)
+    reduce_args = None
+    if splits > 1:
+        reduce_args = args + (*reduce_plan(path, g, m, n, splits), stream)
+    return args + (stream,), reduce_args, splits, (ws, member)
 
 
 def _launch(mode, a, b, out, bits, out_mask, a_mask, b_mask, mult, fi, jj,
             n_live, capacity, block, emit_gran):
-    """One GEMM launch, and its reduce launch when the plan splits K."""
-    global splitk_reduce_launches
-    args, splits, _buffers = launch_args(
+    """One GEMM launch (with the group-major compact pre-pass, and the NaN
+    fix-up when it emits unsplit), and its reduce launch (with the fix-up
+    when it emits) when the plan splits K."""
+    global splitk_reduce_launches, queue_member_launches, emit_fixup_launches
+    g, m, _ = a.shape
+    if g * m * b.shape[2] == 0 or (mode != _PREDICATED and capacity == 0):
+        return
+    args, reduce_args, splits, (_ws, member) = launch_args(
         mode, a, b, out, bits, out_mask, a_mask, b_mask, mult, fi, jj,
         n_live, capacity, block, emit_gran)
     lib = _build.load()
     _build.check(lib.masked_gemm_launch(*args), "masked_gemm")
+    if member is not None:
+        queue_member_launches += 1
     if splits > 1:
-        _build.check(lib.masked_gemm_reduce_launch(*args),
+        _build.check(lib.masked_gemm_reduce_launch(*reduce_args),
                      "masked_gemm split-K reduce")
         splitk_reduce_launches += 1
+    if bits is not None:
+        emit_fixup_launches += 1
+
+
+# ---------------------------------------------------------------------------
+# The launches around the GEMM: membership pre-pass and NaN fix-up
+# ---------------------------------------------------------------------------
+
+def queue_member_plain(fi, jj, n_live, member, *, n_cols):
+    """Plain version of ``queue_member``: member zero-filled, then
+    member[fi[s]·Nb + jj[s]] = 1 for the slots s < n_live, nothing when
+    n_live > capacity."""
+    member.zero_()
+    nl = int(n_live[0])
+    if nl <= fi.numel():
+        member[fi[:nl].long() * n_cols + jj[:nl].long()] = 1
+    return member
+
+
+def queue_member(fi: torch.Tensor, jj: torch.Tensor, n_live: torch.Tensor,
+                 member: torch.Tensor, *, n_cols: int) -> torch.Tensor:
+    """The group-major compact pre-pass alone, as the GEMM launcher runs
+    it: zero-fills the (G·Mb·Nb,) int32 membership bitmap and marks the
+    queue's live tiles in it, read by the group rows and group k kernels
+    and the reduce in place of an out_mask.  Launches
+    ``queue_member_kernel`` for CUDA tensors (counted on
+    ``queue_member_launches``)."""
+    global queue_member_launches
+    _check_queue(fi, jj, n_live, fi.device)
+    if member.dtype != torch.int32 or member.device != fi.device \
+            or not member.is_contiguous():
+        raise ValueError("member must be contiguous int32 on the queue's "
+                         "device")
+    if fi.device.type == "cpu":
+        return queue_member_plain(fi, jj, n_live, member, n_cols=n_cols)
+    _build.check(_build.load().queue_member_launch(
+        fi.data_ptr(), jj.data_ptr(), n_live.data_ptr(), fi.numel(), n_cols,
+        member.data_ptr(), member.numel(), _build.stream_handle(fi.device)),
+        "queue_member")
+    if fi.numel() > 0:
+        queue_member_launches += 1
+    return member
+
+
+def emit_nan_fixup_plain(out, bits, emit_gran):
+    """Plain version of ``emit_nan_fixup``: bits = 0 in every (er, ec) cell
+    whose output holds a NaN."""
+    bits[emit_bits(out.isnan().float(), emit_gran).bool()] = 0
+    return bits
+
+
+def emit_nan_fixup(out: torch.Tensor, bits: torch.Tensor,
+                   emit_gran: Tuple[int, int]) -> torch.Tensor:
+    """The NaN fix-up alone: a cell whose output holds a NaN gets bit 0, as
+    the reference's max over the cell gives it.  The GEMM launchers run it
+    after every emitting launch, where it returns at once unless that
+    launch raised its NaN flag; alone it reads the whole output whatever
+    the flag says.  Launches ``emit_nan_fixup_kernel`` for CUDA tensors
+    (counted on ``emit_fixup_launches``)."""
+    global emit_fixup_launches
+    if out.device.type == "cpu":
+        return emit_nan_fixup_plain(out, bits, emit_gran)
+    g, m, n = out.shape
+    _build.check(_build.load().emit_nan_fixup_launch(
+        out.data_ptr(), bits.data_ptr(), g, m, n, *emit_gran,
+        _build.stream_handle(out.device)), "emit_nan_fixup")
+    if g * m * n > 0:
+        emit_fixup_launches += 1
+    return bits
 
 
 def grouped_masked_matmul_kernel(
@@ -437,9 +632,9 @@ def _lift(*ts):
 
 def masked_matmul_plain(a, b, out_mask, a_mask, b_mask, *, bm, bk, bn,
                         epilogue_mult=None) -> torch.Tensor:
-    """Plain version of K6: the masked dense product, ×σ′."""
-    return ref.masked_matmul(a, b, out_mask, a_mask, b_mask, bm=bm, bk=bk,
-                             bn=bn, epilogue_mult=epilogue_mult)
+    """Plain version of K6: the masked product, ×σ′."""
+    return _masked_product(*_lift(a, b, out_mask, a_mask, b_mask),
+                           (bm, bk, bn), *_lift(epilogue_mult))[0]
 
 
 def masked_matmul_kernel(
@@ -480,8 +675,8 @@ def compact_masked_matmul_plain(a, b, ii, jj, n_active, a_mask, b_mask, *,
     """Plain version of K7: slot s < n_active holds tile (ii[s], jj[s]) of
     the masked product ×σ′; the other slots are zero."""
     (m, _), n = a.shape, b.shape[1]
-    full = ref.masked_matmul(a, b, None, a_mask, b_mask, bm=bm, bk=bk, bn=bn,
-                             epilogue_mult=epilogue_mult)
+    full = _masked_product(*_lift(a, b, None, a_mask, b_mask), (bm, bk, bn),
+                           *_lift(epilogue_mult))[0]
     tiles = full.reshape(m // bm, bm, n // bn, bn)[ii.long(), :, jj.long(), :]
     live = torch.arange(ii.numel(), device=a.device) < n_active[0]
     return torch.where(live[:, None, None], tiles, torch.zeros_like(tiles))

@@ -42,6 +42,7 @@ _GEMM_KERNELS = ("masked_gemm_kernel", "group_rows_kernel", "group_k_kernel",
 # The device function of csrc/cell_encode.cuh (K1: encode_kernel<true, ...>,
 # K5: encode_kernel<false, ...>; the second argument is the path).
 _ENCODER_KERNELS = ("encode_kernel",)
+_PORT_KERNELS = _GEMM_KERNELS + _ENCODER_KERNELS + ("queue_builder_kernel",)
 
 
 def summarize_trace(events: list) -> dict:
@@ -151,9 +152,11 @@ def main(argv=None) -> None:
     print(f"step wall {res['wall_ms']:.1f} ms under the profiler; device "
           f"busy {res['busy_ms']:.1f} ms; idle share "
           f"{res['idle_share']:.3f}")
-    print("device time by kernel (ms, calls):")
-    for name, ms, n in res["kernels"][:25]:
-        print(f"  {ms:10.3f}  {n:5d}  {name[:110]}")
+    print("device time by kernel (ms, calls; the 25 longest and every "
+          "kernel of the port):")
+    for k, (name, ms, n) in enumerate(res["kernels"]):
+        if k < 25 or _short_name(name) in _PORT_KERNELS:
+            print(f"  {ms:10.3f}  {n:5d}  {name[:110]}")
     print("device time by layer, forward + backward (ms):")
     for name, ms in res["layers"]:
         print(f"  {ms:10.3f}  {name}")
@@ -172,6 +175,12 @@ def main(argv=None) -> None:
             if short and short.group(1) in names:
                 print(f"  {ms:10.3f}  {layer:10s}  {str(grid):16s}  "
                       f"{short.group(0)[:-1]}")
+
+
+def _short_name(name: str) -> str:
+    """A kernel's function name without its namespace and arguments."""
+    short = re.search(r"(\w+)(<[^>]*>)?\(", name)
+    return short.group(1) if short else name
 
 
 if __name__ == "__main__":

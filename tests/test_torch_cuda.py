@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels
 from repro_torch.kernels import bitmap_scan as k5
 from repro_torch.kernels import masked_matmul as mm
-from repro_torch.kernels import ops, shapes, stats
+from repro_torch.kernels import ops, ref, shapes, stats
 from repro_torch.kernels import queue_builder as qb
 from repro_torch.kernels import relu_encode as k1
 
@@ -504,3 +504,192 @@ def test_gemm_emit_gives_nan_cells_0(dev, case):
             if mult_ is bad:
                 assert int(got_bits[cell]) == 0
     assert int(want_bits.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K2 across blocks, the split-K reduce alone, the repaired plain GEMM
+# ---------------------------------------------------------------------------
+
+# One block (<= 4,096 tiles), its edges, MobileNet's dw1/dw2 dX bitmaps
+# (25,088 and 50,176 x 1) and ~70,000 tiles (18 blocks of look-back).
+@pytest.mark.parametrize("tiles", [1, 77, 4095, 4096, 4097, 12289, 25088,
+                                   50176, 70001])
+@pytest.mark.parametrize("density", [0.0, 0.4, 1.0])
+def test_queue_kernel_across_blocks_matches_plain(dev, tiles, density):
+    gen = torch.Generator(device=dev).manual_seed(tiles)
+    bm = (torch.rand((tiles, 1), device=dev, generator=gen) < density) \
+        .to(torch.int32)
+    n_live = int(bm.sum())
+    # an unaligned view of the same bits: the scalar path
+    buf = torch.zeros(tiles + 1, dtype=torch.int32, device=dev)
+    buf[1:] = bm[:, 0]
+    views = [bm, buf[1:].view(tiles, 1)]
+    if tiles % 7 == 0:
+        views.append(bm.view(tiles // 7, 7))      # C > 1
+    for view in views:
+        assert (view.data_ptr() % 16 == 0) == (view is not views[1])
+        for cap in sorted({tiles, max(n_live // 2, 1), tiles + 5}):
+            for _ in range(3):         # stale status words would show here
+                got = qb.build_queue_kernel(view, capacity=cap)
+                want = qb.build_queue_plain(view, cap)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+    assert qb.launches == 3 * sum(len({tiles, max(n_live // 2, 1),
+                                       tiles + 5}) for _ in views)
+
+
+REDUCE_CASES = {
+    # (G, M, K, N, block, emit, A layout, mode): the standard path
+    # predicated and compact (capacity past n_live: dead queue slots), with
+    # an emit and a NaN in sigma-prime's multiplier; group k compact
+    # (membership) across groups, N = 1 and N = 2; group k at G = 3, whose
+    # split slice G·M·N (27, 54) is not a whole number of float4s.
+    "standard predicated": ((1, 40, 3000, 20, (16, 32, 8), (2, 4), "plain"),
+                            "predicated", False),
+    "standard compact, NaN": ((2, 40, 3000, 20, (16, 32, 8), (2, 4), "t"),
+                              "compact", True),
+    "standard N % 4 = 0": ((1, 96, 3000, 64, (32, 32, 32), (1, 32), "t"),
+                           "compact", True),
+    "group k compact": ((40, 9, 1000, 1, (9, 128, 1), (1, 1), "grouped_t"),
+                        "compact", False),
+    "group k N2, NaN": ((40, 9, 1000, 2, (9, 128, 2), (3, 1), "grouped_t"),
+                        "predicated", True),
+    "group k G3 N1": ((3, 9, 3000, 1, (9, 128, 1), (1, 1), "grouped_t"),
+                      "compact", False),
+    "group k G3 N2": ((3, 9, 3000, 2, (9, 128, 2), (3, 1), "grouped_t"),
+                      "predicated", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REDUCE_CASES))
+def test_splitk_reduce_matches_plain_in_plan_order(dev, case):
+    """The reduce alone, after one GEMM pass: torch.equal to its plain
+    version (``splitk_reduce_plain`` in plan order, x sigma-prime, on the
+    live tiles), bits equal after the NaN fix-up, and within 1e-5 of the
+    sequential split-order sum."""
+    from repro_torch.kernels import _build
+
+    (g, m, k, n, block, emit, layout), mode, nan = REDUCE_CASES[case]
+    a, b, om, am, bmk, mult = _plan_operands(dev, g, m, k, n, block, layout)
+    path = mm.gemm_path(g, m, k, n, block)
+    splits = mm.split_plan(g, m, k, n, block)
+    plan = mm.reduce_plan(path, g, m, n, splits)
+    assert splits > 1 and (path == mm.GROUP_K) == case.startswith("group")
+    if nan:
+        gi, ti, tj = om.nonzero()[0].tolist()
+        mult[gi, ti * block[0], tj * block[2]] = float("nan")
+    ni, _, nj = shapes.grid_shape((m, k, n), block)
+    out = torch.zeros(g, m, n, device=dev)
+    bits = torch.zeros(g, -(-m // emit[0]), -(-n // emit[1]),
+                       dtype=torch.int32, device=dev)
+    fi = jj = nl = None
+    cap = 0
+    if mode == "compact":
+        cap = g * ni * nj + 3
+        fi, jj, nl = qb.build_queue_kernel(om.reshape(g * ni, nj)
+                                           .contiguous(), capacity=cap)
+    args, rargs, got_splits, (ws, _member) = mm.launch_args(
+        mm._COMPACT if mode == "compact" else mm._PREDICATED, a, b, out,
+        bits, None if mode == "compact" else om, am, bmk, mult, fi, jj, nl,
+        cap, block, emit)
+    assert got_splits == splits and tuple(rargs[-4:-1]) == tuple(plan)
+    lib = _build.load()
+    _build.check(lib.masked_gemm_launch(*args), "gemm")
+    torch.cuda.synchronize()
+    partials = ws.clone()
+    # the reduce, and the NaN fix-up its launcher runs after it
+    _build.check(lib.masked_gemm_reduce_launch(*rargs), "reduce")
+    torch.cuda.synchronize()
+    live = ref.expand_block_mask(om, block[0], block[2])[:, :m, :n].bool()
+    total = mm.splitk_reduce_plain(partials, plan) * mult
+    want = torch.where(live, total, torch.zeros_like(total))
+    assert _same(out, want)
+    assert torch.equal(bits, mm.emit_nan_fixup_plain(
+        want, mm.emit_bits(want.nan_to_num(0.0), emit), emit))
+    seq = mm.splitk_reduce_plain(partials, mm.ReducePlan(1, 256, 1)) * mult
+    seq = torch.where(live, seq, torch.zeros_like(seq))
+    scale = float(seq.nan_to_num(0.0).abs().max())
+    assert float((out - seq).nan_to_num(0.0).abs().max()) <= 1e-5 * scale
+    if nan:
+        assert int(out.isnan().sum()) == 1
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_launches_around_the_gemm_match_plain(dev, overflow):
+    """queue_member alone zero-fills and marks its bitmap (nothing on
+    overflow), emit_nan_fixup alone clears the NaN cells' bits whatever the
+    device flag says, each as its plain version; a group-major compact
+    dispatch that emits counts one pre-pass and one fix-up."""
+    rng = np.random.default_rng(5)
+    om = torch.tensor(rng.random((3 * 70, 1)) < 0.5, dtype=torch.int32,
+                      device=dev)
+    cap = om.numel() if not overflow else int(om.sum()) // 2
+    fi, jj, nl = qb.build_queue_kernel(om, capacity=cap)
+    member = torch.full((om.numel(),), 7, dtype=torch.int32, device=dev)
+    mm.queue_member(fi, jj, nl, member, n_cols=1)
+    want = mm.queue_member_plain(fi.cpu(), jj.cpu(), nl.cpu(),
+                                 torch.full_like(member.cpu(), 7), n_cols=1)
+    assert torch.equal(member.cpu(), want)
+    assert int(want.sum()) == (0 if overflow else int(om.sum()))
+    out = torch.randn(2, 33, 20, device=dev)
+    out[1, 17, 3] = float("nan")
+    bits = torch.ones(2, 17, 7, dtype=torch.int32, device=dev)
+    mm.emit_nan_fixup(out, bits, (2, 3))
+    assert torch.equal(bits.cpu(), mm.emit_nan_fixup_plain(
+        out.cpu(), torch.ones(2, 17, 7, dtype=torch.int32), (2, 3)))
+    assert int(bits[1, 8, 1]) == 0 and int(bits.sum()) == 2 * 17 * 7 - 1
+    assert mm.queue_member_launches == 1 and mm.emit_fixup_launches == 1
+
+    g, m, k, n, block = 3, 70 * 8, 9, 1, (8, 9, 1)
+    assert mm.gemm_path(g, m, k, n, block) == mm.GROUP_ROWS
+    a = torch.randn(g, m, k, device=dev)
+    b = torch.randn(g, k, n, device=dev)
+    mult = torch.ones(g, m, n, device=dev)
+    got, got_bits = mm.grouped_compact_masked_matmul_kernel(
+        a, b, fi, jj, nl, None, None, block=block, epilogue_mult=mult,
+        emit_gran=(1, 1))
+    plain, plain_bits = mm.grouped_compact_masked_matmul_kernel(
+        a.cpu(), b.cpu(), fi.cpu(), jj.cpu(), nl.cpu(), None, None,
+        block=block, epilogue_mult=mult.cpu(), emit_gran=(1, 1))
+    if not overflow:       # the predicated fallback owns an overflow
+        assert torch.allclose(got.cpu(), plain, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got_bits.cpu(), plain_bits)
+    assert mm.queue_member_launches == 2 and mm.emit_fixup_launches == 2
+
+
+@pytest.mark.parametrize("schedule,cap", [("predicated", None),
+                                          ("compact", None),
+                                          ("compact", 2)])
+@pytest.mark.parametrize("where", ["a", "a_inf", "mult"])
+def test_plain_gemm_repair_matches_kernels(dev, where, schedule, cap):
+    """A NaN or an infinity in a skipped block: the kernels and the plain
+    version put the non-finite values in the same places."""
+    rng = np.random.default_rng(11)
+    a = torch.tensor(rng.standard_normal((16, 16)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((16, 16)), dtype=torch.float32)
+    mult = torch.tensor(rng.random((16, 16)) < 0.5, dtype=torch.float32)
+    dead = torch.tensor([[0, 1], [1, 1]], dtype=torch.int32)
+    ones = torch.ones(2, 2, dtype=torch.int32)
+    om, bmk = {"a": (dead, ones), "a_inf": (ones, dead),
+               "mult": (torch.tensor([[1, 1], [0, 1]], dtype=torch.int32),
+                        ones)}[where]
+    if where == "mult":
+        mult[8, 0] = float("nan")
+    else:
+        a[0, 0] = float("nan") if where == "a" else float("inf")
+    stages = ("sigma_prime",) if where == "mult" else ()
+    spec = ops.GemmSpec(block=(8, 8, 8), schedule=schedule, epilogue=stages,
+                        max_active_blocks=cap)
+    res = []
+    for d in ("cpu", dev):
+        x = [t.to(d) for t in (a, b, om, ones, bmk, mult)]
+        res.append(ops.sparse_gemm(x[0], x[1], tuple(x[2:5]), spec,
+                                   epilogue_mult=x[5] if stages else None)
+                   .cpu())
+    want, got = res
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    fin = want.isfinite()
+    assert float((got[fin] - want[fin]).abs().max()) <= 1e-5 * float(
+        want[fin].abs().max())
+    assert int((~want.isfinite()).sum()) == (0 if where == "mult" else 8)

@@ -171,6 +171,24 @@ def test_build_queue_matches_reference(name, cap_kind, builder):
     assert tstats.counts() == jstats.counts() == {f"queue:{builder}": 1}
 
 
+# MobileNet's compact GEMMs hand K2 (G·Mb, 1) bitmaps: dw1's dX 32 × 784
+# row tiles, dw2's 64 × 784; "above" puts the capacity past T.
+@pytest.mark.parametrize("tiles,cap_kind", [(25088, "exact"),
+                                            (25088, "below"),
+                                            (50176, "exact"),
+                                            (50176, "above")])
+def test_queue_plain_version_at_mobilenet_sizes(tiles, cap_kind):
+    bm = (np.random.default_rng(tiles).random((tiles, 1)) < 0.5) \
+        .astype(np.int32)
+    cap = {"exact": tiles, "above": tiles + 77,
+           "below": int(bm.sum()) // 2}[cap_kind]
+    jq = jops.build_queue(jnp.asarray(bm), capacity=cap)
+    tq = tqueue.build_queue_plain(torch.tensor(bm), cap)
+    for t, j in zip(tq, jq):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    assert int(tq[2][0]) == int(bm.sum())
+
+
 def test_queue_plain_version_equals_argsort_reference():
     for bm in BITMAPS.values():
         for cap in (bm.size, max(int(bm.sum()) // 2, 1)):
@@ -242,6 +260,90 @@ def test_sparse_gemm_matches_reference(schedule, epi, blk, cap):
     assert tstats.counts() == jstats.counts()
     if cap == "overflow":
         assert tstats.counts().get("fallback:queue_overflow") == 1
+
+
+# Non-finite values in skipped blocks, at (16, 16) @ (16, 16) on block
+# (8, 8, 8): (where, value, out_mask, b_mask, which operand or σ′ holds it).
+DEAD_2X2 = [[0, 1], [1, 1]]
+NONFINITE = {
+    # a NaN in A's row 0, whose output tile (0, 0) is dead
+    "nan in a dead output tile": (DEAD_2X2, None, "a"),
+    # an infinity in a live A block that meets the dead B block (0, 0)
+    "inf in a live A block, dead B block": (None, DEAD_2X2, "a_inf"),
+    # a NaN in σ′'s multiplier on the dead output tile (1, 0)
+    "nan in sigma-prime at a dead tile": ([[1, 1], [0, 1]], None, "mult"),
+}
+
+
+@pytest.mark.parametrize("schedule,cap", [("predicated", None),
+                                          ("compact", None),
+                                          ("compact", 2)])
+@pytest.mark.parametrize("case", sorted(NONFINITE))
+def test_sparse_gemm_nonfinite_in_skipped_blocks_matches_reference(
+        case, schedule, cap):
+    """A NaN or an infinity in a block the kernels skip stays out of the
+    output: the plain version's non-finite values sit where the reference's
+    do, under every schedule (cap 2 < n_live: the overflow fallback), and
+    the finite values agree to 1e-5.
+
+    The σ′ case is held against the reference's compact schedule: its
+    predicated Pallas kernel runs the epilogue on a dead tile too (its
+    accumulator 0 × NaN), where every kernel of both packages that skips
+    the tile, and so the port on every schedule, leaves 0."""
+    out_mask, b_mask, where = NONFINITE[case]
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((16, 16)).astype(np.float32)
+    b = rng.standard_normal((16, 16)).astype(np.float32)
+    mult = (rng.random((16, 16)) < 0.5).astype(np.float32)
+    if where == "a":
+        a[0, 0] = np.nan
+    elif where == "a_inf":
+        a[0, 0] = np.inf
+    else:
+        mult[8, 0] = np.nan
+    ones = np.ones((2, 2), np.int32)
+    om = np.asarray(out_mask if out_mask is not None else ones, np.int32)
+    bmk = np.asarray(b_mask if b_mask is not None else ones, np.int32)
+    masks = (om, ones, bmk)
+    stages = ("sigma_prime",) if where == "mult" else ()
+    kw = dict(block=(8, 8, 8), epilogue=stages, max_active_blocks=cap)
+    jsched, jcap = ("compact", None) if where == "mult" else (schedule, cap)
+    want = np.asarray(jops.sparse_gemm(
+        jnp.asarray(a), jnp.asarray(b),
+        jops.GemmMasks(*(jnp.asarray(x) for x in masks)),
+        jops.GemmSpec(schedule=jsched, **{**kw, "max_active_blocks": jcap}),
+        epilogue_mult=jnp.asarray(mult) if stages else None))
+    got = tops.sparse_gemm(
+        torch.tensor(a), torch.tensor(b),
+        tops.GemmMasks(*(torch.tensor(x) for x in masks)),
+        tops.GemmSpec(schedule=schedule, **kw),
+        epilogue_mult=torch.tensor(mult) if stages else None).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=TOL, atol=TOL)
+    # row 0 of the live tile (0, 1) only; the skipped tile or pair is finite
+    bad = ~np.isfinite(got)
+    assert bad.sum() == (0 if where == "mult" else 8)
+    assert bad[0, 8:].all() == (where != "mult")
+
+
+def test_plain_gemm_keeps_one_bmm_on_finite_operands(monkeypatch):
+    """Finite operands take one bmm (the order and time the step's plain
+    version had); a non-finite live block takes the k-block route."""
+    from repro_torch.kernels import masked_matmul as tmm
+
+    calls = []
+    real = torch.bmm
+    monkeypatch.setattr(torch, "bmm", lambda x, y: calls.append(1)
+                        or real(x, y))
+    a, b, om, am, bmk, mult = (torch.tensor(x) for x in
+                               _gemm_inputs((8, 16, 8), 2))
+    tmm._masked_product(a, b, om, am, bmk, (8, 16, 8), mult)
+    assert len(calls) == 1
+    a[0, 0, 0] = float("inf")
+    tmm._masked_product(a, b, om, am, bmk, (8, 16, 8), mult)
+    assert len(calls) == 1 + 3              # K = 40 on bk = 16: 3 k blocks
 
 
 def test_gemm_spec_validation_matches_reference():

@@ -96,11 +96,18 @@ def test_launch_args_plan_ignores_masks_capacity_and_live_count(
                                       cap)),
                     (mm._PREDICATED, (om, am, None, None, None, None, None,
                                       0))):
-                c_args, splits, _ = mm.launch_args(
+                c_args, r_args, splits, _ = mm.launch_args(
                     mode, a, b, out, None, *args, block, None)
-                plans.add((c_args[-3], splits))     # (path, splits)
-    assert plans == {(mm.gemm_path(g, m, k, n, block),
-                      mm.split_plan(g, m, k, n, block))}
+                # (path, splits, the reduce plan)
+                plans.add((c_args[-3], splits, (0, 0, 0) if r_args is None
+                           else r_args[-4:-1]))
+                assert r_args is None or (
+                    r_args[:-4] == c_args[:-1] and r_args[-1] == c_args[-1])
+    path = mm.gemm_path(g, m, k, n, block)
+    splits = mm.split_plan(g, m, k, n, block)
+    plan = tuple(mm.reduce_plan(path, g, m, n, splits)) if splits > 1 \
+        else (0, 0, 0)
+    assert plans == {(path, splits, plan)}
     assert len(plans) == 1 and (name != "split" or next(iter(plans))[1] > 1)
 
 
@@ -233,3 +240,111 @@ def test_sparse_gemm_at_path_shapes_matches_reference(case, cap):
     assert tstats.counts() == jstats.counts()
     assert (tstats.counts().get("fallback:queue_overflow") == 1) \
         == (cap == "overflow")
+
+
+# ---------------------------------------------------------------------------
+# The split-K reduce's plan and its plain sum
+# ---------------------------------------------------------------------------
+
+def _split_shapes():
+    """(name, path, G, M, N, S) of every split launch in STEP_SHAPES."""
+    out = []
+    for name, (g, m, k, n, block) in sorted(STEP_SHAPES.items()):
+        splits = mm.split_plan(g, m, k, n, block)
+        if splits > 1:
+            out.append((name, mm.gemm_path(g, m, k, n, block), g, m, n,
+                        splits))
+    return out
+
+
+def test_reduce_plan_is_a_function_of_path_shape_and_splits_only(
+        monkeypatch):
+    assert list(inspect.signature(mm.reduce_plan).parameters) == \
+        ["path", "g", "m", "n", "splits"]
+
+    def no_device(*_a, **_k):
+        raise AssertionError("reduce_plan asked the device")
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    for _, path, g, m, n, s in _split_shapes():
+        plan = mm.reduce_plan(path, g, m, n, s)
+        assert plan == mm.reduce_plan(path, g, m, n, s)
+        assert plan.chunks * plan.quads == mm.REDUCE_THREADS
+        assert 1 <= plan.chunks <= min(s, mm.REDUCE_MAX_CHUNKS)
+    with pytest.raises(ValueError):
+        mm.reduce_plan(mm.STANDARD, 1, 8, 8, 1)
+
+
+@pytest.mark.parametrize("splits", [2, 3, 5, 7, 8])
+def test_reduce_plan_keeps_one_chunk_at_small_split_counts(splits):
+    """The FP/dX reduces of VGG16's conv8-13 and head (2-7 splits on grids
+    of 10^4-10^5 outputs) sum in split order, as before the plan."""
+    for g, m, n in ((1, 1568, 512), (1, 4608, 512), (1, 8, 1000)):
+        if g * m * -(-n // 4) >= mm.REDUCE_FILL_THREADS:
+            assert mm.reduce_plan(mm.STANDARD, g, m, n, splits).chunks == 1
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _split_shapes()])
+def test_reduce_chunks_cover_the_splits_in_order(case):
+    name, path, g, m, n, s = next(c for c in _split_shapes() if c[0] == case)
+    plan = mm.reduce_plan(path, g, m, n, s)
+    bounds = mm.split_bounds(s, plan.chunks)
+    assert [z for lo, hi in bounds for z in range(lo, hi)] == list(range(s))
+    assert all(hi - lo >= 1 for lo, hi in bounds)
+    # every thread's chunk fits one batch of loads in flight
+    assert max(hi - lo for lo, hi in bounds) <= mm.REDUCE_LOADS
+    # the grid covers the units: the flat workspace (group k) or a piece
+    units = -(-g * m * n // 4) if path == mm.GROUP_K \
+        else min(m, 128) * -(-min(n, 128) // 4)
+    assert plan.grid * plan.quads >= units > (plan.grid - 1) * plan.quads
+
+
+def test_reduce_plan_at_the_step_shapes():
+    plans = {c[0]: (c[5], mm.reduce_plan(*c[1:])) for c in _split_shapes()}
+    # conv2's WG: 79 partials of 9,216 units, 16 chunks of 4-5 splits
+    assert plans["vgg16 conv2 WG"][0] == 79
+    assert plans["vgg16 conv2 WG"][1].chunks == 16
+    # dw1's WG: 392 partials of 288 outputs across 32 groups, one grid of
+    # the flat workspace, the most chunks
+    s, plan = plans["mobilenet dw1 WG"]
+    assert s == 392 and plan.chunks == mm.REDUCE_MAX_CHUNKS
+    assert plan.grid == 72 // plan.quads == 18     # 288 outputs, 72 units
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4, 7])
+def test_splitk_reduce_plain_sums_in_plan_order(chunks):
+    rng = np.random.default_rng(chunks)
+    ws = torch.tensor(rng.standard_normal((7, 2, 5, 6)).astype(np.float32))
+    plan = mm.ReducePlan(chunks, mm.REDUCE_THREADS // chunks, 1)
+    got = mm.splitk_reduce_plain(ws, plan)
+    want = None
+    for lo, hi in mm.split_bounds(7, chunks):
+        part = ws[lo].clone()
+        for z in range(lo + 1, hi):
+            part = part + ws[z]
+        want = part if want is None else want + part
+    assert torch.equal(got, want)
+    seq = ws[0].clone()
+    for z in range(1, 7):
+        seq = seq + ws[z]
+    if chunks == 1:
+        assert torch.equal(got, seq)          # C = 1: the sequential sum
+    assert float((got - seq).abs().max()) <= 1e-5 * float(seq.abs().max())
+    assert not torch.equal(ws[0], got)        # the sum, not a copy
+
+
+def test_queue_member_and_emit_fixup_plain_versions():
+    fi = torch.tensor([0, 2, 3, 0], dtype=torch.int32)
+    jj = torch.tensor([1, 0, 1, 0], dtype=torch.int32)
+    member = torch.full((4 * 2,), 7, dtype=torch.int32)   # zero-filled
+    mm.queue_member(fi, jj, torch.tensor([3], dtype=torch.int32), member,
+                    n_cols=2)
+    assert member.tolist() == [0, 1, 0, 0, 1, 0, 0, 1]
+    over = torch.full((8,), 7, dtype=torch.int32)
+    mm.queue_member(fi, jj, torch.tensor([5], dtype=torch.int32), over,
+                    n_cols=2)
+    assert int(over.sum()) == 0                # overflow: nothing marked
+    out = torch.ones(1, 4, 6)
+    out[0, 1, 4] = float("nan")
+    bits = mm.emit_bits(out.nan_to_num(1.0), (2, 3))
+    mm.emit_nan_fixup(out, bits, (2, 3))
+    assert bits.tolist() == [[[1, 0], [1, 1]]]
