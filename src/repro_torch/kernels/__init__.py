@@ -20,7 +20,9 @@ from .ops import (  # noqa: F401
     GemmMasks,
     GemmSpec,
     build_queue,
+    relu_bwd_masked,
     sparse_gemm,
+    weight_grad_masked,
 )
 
 

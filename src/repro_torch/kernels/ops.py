@@ -35,7 +35,7 @@ from . import masked_matmul, ref, stats
 from . import bitmap_scan as _bitmap_scan
 from . import relu_encode as _relu_encode
 from .queue_builder import build_queue
-from .shapes import grid_shape, pad_mask3
+from .shapes import block_bitmap, grid_shape, pad_mask3
 
 DEFAULT_BLOCK = (128, 128, 128)
 
@@ -124,6 +124,37 @@ class GemmSpec:
     def stats_key(self) -> str:
         """The normalized per-launch counter key: ``gemm:<schedule>:<g>``."""
         return f"gemm:{self.schedule}:{self.groups}"
+
+    def launch_geometry(self, m: int, k: int, n: int) -> dict:
+        """The logical launch geometry this spec resolves to for per-group
+        dims (M, K, N), as the reference defines it: schedule, groups,
+        block, the block-padded (G, M, K, N), the compact queue's capacity
+        and the grid (compact: (capacity, Kb) with the predicated
+        (G, Mb, Nb, Kb) as ``fallback_grid``).  The CUDA kernels do not
+        pad; what they launch for a shape is ``masked_matmul.gemm_path``,
+        ``split_plan`` and ``grid_blocks``."""
+        bm, bk, bn = self.block
+        ni, nk, nj = grid_shape((m, k, n), self.block)
+        g = self.groups
+        geom = {
+            "schedule": self.schedule,
+            "groups": g,
+            "block": (bm, bk, bn),
+            "padded": (g, ni * bm, nk * bk, nj * bn),
+            "queue_capacity": 0,
+            "grid": (),
+        }
+        if self.schedule == "dense":
+            return geom
+        predicated_grid = (g, ni, nj, nk)
+        if self.schedule == "compact":
+            cap = self.max_active_blocks
+            geom["queue_capacity"] = g * ni * nj if cap is None else cap
+            geom["grid"] = (geom["queue_capacity"], nk)
+            geom["fallback_grid"] = predicated_grid
+        else:
+            geom["grid"] = predicated_grid
+        return geom
 
 
 MasksLike = Union[GemmMasks, Sequence[Optional[torch.Tensor]], None]
@@ -279,3 +310,52 @@ def relu_encode(z: torch.Tensor, *,
     stats.record("encode:act")
     with stats.lifecycle_scope("encode", "act"):
         return _relu_encode.relu_encode(z, block)
+
+
+# ---------------------------------------------------------------------------
+# The paper's composite ops, spec-driven
+# ---------------------------------------------------------------------------
+
+def relu_bwd_masked(
+    dy: torch.Tensor,          # (M, K) δ_post — gradient from the layer above
+    w_t: torch.Tensor,         # (K, N) Wᵀ of the producer layer
+    relu_mask: torch.Tensor,   # (M, N) {0,1} σ'(z) captured in the forward
+    *,
+    spec: Optional[GemmSpec] = None,
+    use_input_sparsity: bool = True,
+    use_output_sparsity: bool = True,
+) -> torch.Tensor:
+    """δ_pre = (δ_post @ Wᵀ) ⊙ σ'(z) with block skipping — the paper's core
+    op.  OUTPUT sparsity: tiles where σ'(z) is all-zero are never computed;
+    INPUT sparsity: K-tiles of δ_post that are all-zero are skipped.  The
+    σ′ multiply rides the GEMM's fused epilogue (``spec``'s epilogue is
+    forced to ``sigma_prime``, its groups to 1)."""
+    spec = GemmSpec() if spec is None else spec
+    spec = spec.with_(epilogue="sigma_prime", groups=1)
+    bm, bk, bn = spec.block
+    mask32 = relu_mask.to(torch.float32)
+    out_mask = block_bitmap(mask32, bm, bn) if use_output_sparsity else None
+    a_mask = block_bitmap(dy.to(torch.float32), bm, bk) \
+        if use_input_sparsity else None
+    return sparse_gemm(dy, w_t, GemmMasks(out_mask, a_mask, None), spec,
+                       epilogue_mult=mask32)
+
+
+def weight_grad_masked(
+    x_t: torch.Tensor,       # (N, M) Xᵀ — activations (sparse post-ReLU)
+    dy: torch.Tensor,        # (N, K) δ — gradient (sparse post-Hadamard)
+    *,
+    spec: Optional[GemmSpec] = None,
+    use_input_sparsity: bool = True,
+) -> torch.Tensor:
+    """dW = Xᵀ @ δ with INPUT sparsity on both operands (the paper's WG
+    stage): no output sparsity, but contraction tiles where either operand
+    is all-zero are skipped."""
+    spec = GemmSpec() if spec is None else spec
+    spec = spec.with_(epilogue="none", groups=1)
+    bm, bk, bn = spec.block
+    a_mask = b_mask = None
+    if use_input_sparsity:
+        a_mask = block_bitmap(x_t.to(torch.float32), bm, bk)
+        b_mask = block_bitmap(dy.to(torch.float32), bk, bn)
+    return sparse_gemm(x_t, dy, GemmMasks(None, a_mask, b_mask), spec)

@@ -1,7 +1,8 @@
 """The paper's CNN benchmarks on ``core.sparse_conv``'s units (the port of
 ``repro.models.cnn``): the layer IR, the five network definitions, and
 ``CNNModel`` init/apply/loss over a plain dict of tensors keyed like the JAX
-param tree (``{"conv1": {"w": (R,S,C,M)}, ..., "head": {"w": (C, classes)}}``).
+param tree (``{"conv1": {"w": (R,S,C,M)}, ..., "head": {"w": (C, classes)}}``),
+and its cost-model bridge (``conv_specs``, ``gemm_workload``).
 
 Activations are NHWC and weights HWIO, as in the reference.  Depthwise
 nodes (MobileNet) run through the engine's grouped branch.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.costmodel import ConvSpec
 from repro_torch.core.policy import DC, SparsityPolicy
 from repro_torch.core.sparse_conv import (
     _pad_amounts,
@@ -61,6 +63,16 @@ class Branch:
     name: str
     paths: List[List[Any]]        # parallel sub-sequences
     merge: str                    # "concat" | "add"
+
+
+@dataclasses.dataclass
+class Trace:
+    """Per-conv-layer tensors captured during one training step."""
+    name: str
+    act_out: torch.Tensor         # post-(BN+)ReLU output feature map (NHWC)
+    grad_out: torch.Tensor        # gradient at the same point (post-Hadamard)
+    input_act: torch.Tensor       # the conv's input (post-ReLU of producer)
+    grad_in: torch.Tensor         # gradient arriving at the conv's output
 
 
 def resolved_out_ch(node: ConvNode, in_ch: int) -> int:
@@ -339,6 +351,64 @@ class CNNModel:
         logits = self.apply(params, images, policy)
         logp = torch.log_softmax(logits, dim=-1)
         return -logp.gather(1, labels.long()[:, None]).mean()
+
+    # -- cost-model bridge --
+    def conv_specs(self, batch: int) -> List[ConvSpec]:
+        """Static ConvSpec list at this model's geometry (input_is_relu /
+        has_bn flags follow the graph, as the paper's applicability rules)."""
+        specs: List[ConvSpec] = []
+
+        def walk(nodes, in_ch, hw, input_is_relu):
+            for node in nodes:
+                if isinstance(node, ConvNode):
+                    out_ch = resolved_out_ch(node, in_ch)
+                    specs.append(ConvSpec(
+                        name=node.name, c=in_ch, h=hw, w=hw, m=out_ch,
+                        r=node.kernel, s=node.kernel, stride=node.stride,
+                        groups=in_ch if node.depthwise else 1,
+                        has_bn=node.has_bn, input_is_relu=input_is_relu,
+                        output_feeds_relu=node.relu_after, batch=batch))
+                    in_ch = out_ch
+                    hw = -(-hw // node.stride)
+                    input_is_relu = node.relu_after
+                elif isinstance(node, PoolNode):
+                    hw = -(-hw // node.stride)
+                    input_is_relu = False
+                elif isinstance(node, Branch):
+                    outs = []
+                    hws = []
+                    for path in node.paths:
+                        o, h2 = walk(path, in_ch, hw, False)
+                        outs.append(o)
+                        hws.append(h2)
+                    in_ch = sum(outs) if node.merge == "concat" else outs[0]
+                    hw = hws[0]
+                    input_is_relu = node.merge == "add"
+            return in_ch, hw
+
+        walk(self.layers, self.in_ch, self.image_size, False)
+        return specs
+
+    def gemm_workload(self, batch: int) -> List[dict]:
+        """Per-layer, per-stage GEMM requests this model's training step
+        lowers onto ``kernels.ops.sparse_gemm``: one row per (layer, stage
+        ∈ {fp, bp_dx, wg}) with the per-group (M, K, N) dims, the group
+        count and the layer's full channel counts ``cin``/``cout`` (from
+        which ``conv_channel_granularity`` recomputes the engine's bitmap
+        granularities)."""
+        rows: List[dict] = []
+        for s in self.conv_specs(batch):
+            g = s.groups
+            t_out = batch * s.u * s.v            # output pixels (FP/WG rows)
+            t_in = batch * s.h * s.w             # input pixels (dX rows)
+            for stage, m, k, n in (
+                    ("fp", t_out, s.crs, s.m // g),
+                    ("bp_dx", t_in, s.mrs, s.c // g),
+                    ("wg", s.crs, t_out, s.m // g)):
+                rows.append({"layer": s.name, "stage": stage, "groups": g,
+                             "m": m, "k": k, "n": n,
+                             "cin": s.c, "cout": s.m})
+        return rows
 
 
 def build_cnn(name: str, *, image_size: int = 32, width: float = 1.0,

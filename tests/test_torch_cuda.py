@@ -1,6 +1,6 @@
 """The port's CUDA kernels on a GPU: each kernel against its plain version,
-and small VGG16 and MobileNet steps on the card against the same steps on
-the CPU.
+the composite ops relu_bwd_masked and weight_grad_masked, and small steps
+of all five networks on the card against the same steps on the CPU.
 
 Marked ``cuda``; every test skips without a CUDA device (decided inside the
 fixture, never at import).  On a machine with a GPU and nvcc:
@@ -693,3 +693,50 @@ def test_plain_gemm_repair_matches_kernels(dev, where, schedule, cap):
     assert float((got[fin] - want[fin]).abs().max()) <= 1e-5 * float(
         want[fin].abs().max())
     assert int((~want.isfinite()).sum()) == (0 if where == "mult" else 8)
+
+
+@pytest.mark.parametrize("schedule", ["predicated", "compact"])
+def test_composite_ops_on_card_match_cpu(dev, schedule):
+    """relu_bwd_masked (σ′ from a ~50% mask) and weight_grad_masked over
+    its result: the card against the plain versions on the CPU, with equal
+    count dicts; the WG's long K takes the split-K plan."""
+    rng = np.random.default_rng(12)
+    dy = torch.relu(torch.tensor(rng.standard_normal((300, 200)),
+                                 dtype=torch.float32))
+    w_t = torch.tensor(rng.standard_normal((200, 72)), dtype=torch.float32)
+    sigma = torch.tensor(rng.random((300, 72)) < 0.5, dtype=torch.float32)
+    sigma[:64] = 0                       # two dead row tiles
+    x_t = torch.tensor(rng.standard_normal((40, 300)), dtype=torch.float32)
+    spec = ops.GemmSpec(block=(32, 32, 32), schedule=schedule)
+    res, counts = [], []
+    for d in ("cpu", dev):
+        stats.reset()
+        d_pre = ops.relu_bwd_masked(dy.to(d), w_t.to(d), sigma.to(d),
+                                    spec=spec)
+        dw = ops.weight_grad_masked(x_t.to(d), d_pre, spec=spec)
+        res.append((d_pre.cpu(), dw.cpu()))
+        counts.append(stats.counts())
+    assert counts[1] == counts[0]
+    for got, want in zip(res[1], res[0]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+    assert float(res[1][0][:64].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("net", ["googlenet", "resnet18", "densenet121"])
+def test_other_networks_step_on_card_matches_cpu(dev, net):
+    """One small IN_OUT_WR step of each of the other three networks: equal
+    count dicts, the loss at 1e-5, launches equal to dispatches."""
+    from repro_torch.cnn_training import train_steps
+    kw = dict(net=net, steps=1, image_size=32, width=0.125, num_classes=10,
+              batch=2)
+    cpu = train_steps(device="cpu", **kw)["steps"][0]
+    gpu = train_steps(device="cuda", **kw)["steps"][0]
+    assert gpu["counts"] == cpu["counts"]
+    assert abs(gpu["loss"] - cpu["loss"]) <= 1e-5 * abs(cpu["loss"])
+    c, launches = gpu["counts"], gpu["launches"]
+    assert c.get("conv:dense_fallback", 0) == 0
+    assert launches["relu_encode"] == c["encode:act"]
+    assert launches["queue_builder"] == c["queue:prefix_sum"]
+    assert launches["compact_gemm"] == c["gemm:compact:1"] == sum(
+        v for k, v in c.items() if k.startswith("gemm:"))

@@ -46,6 +46,12 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.cnn_training\n"
         "import repro_torch.kernels.ops, repro_torch.models.cnn\n"
+        "import repro_torch.core.costmodel, repro_torch.core.workredist\n"
+        "import repro_torch.core.sparsity, repro_torch.models.common\n"
+        "import repro_torch.models.ffn, repro_torch.benchmarks.common\n"
+        "import repro_torch.benchmarks.figures\n"
+        "import repro_torch.benchmarks.kernel_audit\n"
+        "import repro_torch.benchmarks.run\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
     )
@@ -56,9 +62,12 @@ def test_port_imports_with_jax_blocked():
 
 
 def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
+    from repro_torch.benchmarks import run
+    from repro_torch.benchmarks.common import capture_traces
     from repro_torch.cnn_training import train_steps
     from repro_torch.data.pipeline import image_batch
     from repro_torch.models.cnn import build_cnn, params_from_jax
+    from repro_torch.models.ffn import FFNConfig, ffn_init
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -69,6 +78,12 @@ def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
         image_batch(0, 0, batch=2, image_size=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({}, "cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        capture_traces("vgg16")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["launch_shape_audit"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ffn_init(0, FFNConfig(8, 16, "relu"))
 
 
 def test_kernel_wrapper_takes_plain_version_only_for_cpu_tensors():
