@@ -30,7 +30,11 @@ Phases (any failure makes the exit code nonzero):
      runs again with a NaN planted in its sigma-prime multiplier, whose
      emit cell must be 0 on every schedule.  A capacity-
      limited dispatch must count fallback:queue_overflow on the card as on
-     the CPU, with no host sync;
+     the CPU, with no host sync.  Last, phase 6's networks at their own
+     shapes: one IN_OUT_WR step each of GoogLeNet, ResNet-18 and
+     DenseNet-121, in which every K1 encode, K2 queue and GEMM dispatch
+     (K2 -> K3 with its split-K reduce and NaN fix-up) is held against its
+     plain version on the same inputs, the first call of each shape timed;
   4. VGG16 end to end at full width (224x224, width 1.0, 1000 classes,
      batch 8): three IN_OUT_WR SGD steps and one IN_OUT step through
      ``repro_torch.cnn_training.train_steps``, with the launch counters
@@ -719,7 +723,163 @@ def kernel_phase(dev):
     err, _, ok = rel_err(o_gpu.cpu(), o_cpu)
     check(ok and torch.equal(b_gpu.cpu(), b_cpu),
           "the overflowing dispatch matches the CPU run")
+
+    # The shapes of phase 6's networks, as their own step gives them: one
+    # IN_OUT_WR step of each from phase 6's weights and batch, in which
+    # every K1 encode, every K2 queue and every GEMM dispatch (K2 -> K3,
+    # with the split-K reduce and the NaN fix-up where the plan has them)
+    # is held against its plain version on the same inputs as it returns.
+    # The first call of each shape is timed.  The role is read from the
+    # order: a layer's first dispatch is its forward, a transposed A its WG.
+    for net in NEW_NETS:
+        audit_step(dev, net, report, encoder_detail)
     return rows
+
+
+def audit_step(dev, net, report, detail, **geom):
+    """One IN_OUT_WR step of ``net`` (phase 6's weights and batch) with
+    every K1 encode, K2 queue and GEMM dispatch in it held against its
+    plain version on the same inputs as it returns (see kernel_phase);
+    ``report`` prints a kernel line, ``detail`` an encoder's plan."""
+    import torch
+    from repro_torch.core.policy import IN_OUT_WR
+    from repro_torch.kernel_times import event_ms as time_ms
+    from repro_torch.kernels import masked_matmul as mm
+    from repro_torch.kernels import ops, shapes, stats
+    from repro_torch.kernels import queue_builder as qb
+    from repro_torch.kernels import relu_encode as re_
+    from repro_torch.models.cnn import param_leaves
+
+    model, params, img, labels = new_net(dev, net, **geom)
+    params = clone_params(params)
+    real_dispatch, real_queue = ops._dispatch, ops.build_queue
+    real_encode = re_.relu_encode
+    seen, held, timing = set(), {"gemm": 0, "queue": 0, "encode": 0}, []
+
+    def once(key):
+        new = key not in seen
+        seen.add(key)
+        return new
+
+    def plain_dispatch(a, b, masks, spec, mult):
+        g, m, k = a.shape
+        n = b.shape[2]
+        ni, nk, nj = shapes.grid_shape((m, k, n), spec.block)
+
+        def pad(x, *s):
+            return None if x is None \
+                else shapes.pad_mask3(x, g, *s).contiguous()
+        emit = spec.emit_gran if spec.emits_bitmap else None
+        return mm.grouped_masked_matmul_plain(
+            a, b, pad(masks.out, ni, nj), pad(masks.a, ni, nk),
+            pad(masks.b, nk, nj), block=spec.block,
+            epilogue_mult=None if mult is None else mult.float(),
+            emit_gran=emit, out=torch.zeros(g, m, n, device=dev),
+            bits=None if emit is None else torch.zeros(
+                g, -(-m // emit[0]), -(-n // emit[1]),
+                dtype=torch.int32, device=dev))
+
+    def dispatch(a, b, masks, spec, mult):
+        out, bits = real_dispatch(a, b, masks, spec, mult)
+        if timing:
+            return out, bits
+        layer = stats.current_layer()
+        role = "FP" if once(("layer", layer)) else \
+            "WG" if a.stride(-1) != 1 else "dX"
+        g, m, k = a.shape
+        n = b.shape[2]
+        want, want_bits = plain_dispatch(a, b, masks, spec, mult)
+        err, rel, ok = rel_err(out, want)
+        ok = ok and torch.equal(out == 0, want == 0) and (
+            bits is None or torch.equal(bits, want_bits))
+        held["gemm"] += 1
+        emit = spec.emit_gran if spec.emits_bitmap else None
+        plan = {"path": mm.gemm_path(g, m, k, n, spec.block),
+                "splits": mm.split_plan(g, m, k, n, spec.block),
+                "block": spec.block, "emit_gran": emit}
+        case = (f"{net} {layer} {role} {g}x{m}x{k}x{n}"
+                + (" sigma-prime" if mult is not None else "")
+                + ("" if emit is None else f" emit {emit}"))
+        if not once(("gemm", g, m, k, n, spec.block, emit,
+                     mult is None, tuple(x is None for x in masks))):
+            check(ok, f"compact_gemm {case} matches its plain version "
+                  f"({rel:.2e} of max|plain|)")
+            return out, bits
+        ni, nk, nj = shapes.grid_shape((m, k, n), spec.block)
+        om = shapes.pad_mask3(masks.out, g, ni, nj, device=dev)
+        am, bmk = (None if x is None else shapes.pad_mask3(x, g, *s)
+                   for x, s in ((masks.a, (ni, nk)), (masks.b, (nk, nj))))
+        flops, bytes_ = gemm_traffic((g, m, k, n), spec.block, om, am,
+                                     bmk, mult, bits)
+        timing.append(True)
+        try:
+            report("compact_gemm", case + " (K2 -> K3 dispatch)", err,
+                   ok, time_ms(lambda: real_dispatch(a, b, masks, spec,
+                                                     mult)),
+                   time_ms(lambda: plain_dispatch(a, b, masks, spec,
+                                                  mult)),
+                   time_ms(lambda: torch.matmul(a, b)), bytes_, flops,
+                   rel, plan)
+        finally:
+            timing.clear()
+        return out, bits
+
+    def queue(bitmap, *, capacity, builder="prefix_sum"):
+        if timing:                 # uncounted: K2 alone
+            return qb.build_queue_kernel(bitmap, capacity=capacity)
+        got = real_queue(bitmap, capacity=capacity, builder=builder)
+        want = qb.build_queue_plain(bitmap, capacity)
+        ok = all(torch.equal(x, y) for x, y in zip(got, want))
+        held["queue"] += 1
+        case = f"{net} {stats.current_layer()} {bitmap.shape[0]}x" \
+            f"{bitmap.shape[1]} cap {capacity}"
+        if not once(("queue", tuple(bitmap.shape), capacity)):
+            check(ok, f"queue_builder {case} matches its plain version")
+            return got
+        report("queue_builder", case, 0.0 if ok else 1.0, ok,
+               time_ms(lambda: qb.build_queue_kernel(
+                   bitmap, capacity=capacity)),
+               time_ms(lambda: qb.build_queue_plain(bitmap, capacity)),
+               time_ms(lambda: torch.nonzero(bitmap)),
+               4.0 * bitmap.numel() + 8.0 * capacity + 4.0, 0.0)
+        return got
+
+    def encode(z, gran):
+        y, bits = real_encode(z, gran)
+        yp, bp = re_.relu_encode_plain(z, gran)
+        ok = torch.equal(y, yp) and torch.equal(bits, bp)
+        held["encode"] += 1
+        report("relu_encode", f"{net} {stats.current_layer()} input "
+               f"{z.shape[0]}x{z.shape[1]} gran {gran}",
+               float((y - yp).abs().max()), ok,
+               time_ms(lambda: real_encode(z, gran)),
+               time_ms(lambda: re_.relu_encode_plain(z, gran)),
+               time_ms(lambda: torch.relu(z)),
+               8.0 * z.numel() + 4.0 * bits.numel(), 0.0,
+               plan=detail(z, gran, y,
+                                   lambda: real_encode(z, gran),
+                                   lambda: torch.relu(z)))
+        return y, bits
+
+    leaves = param_leaves(params)
+    stats.reset()
+    ops._dispatch, ops.build_queue, re_.relu_encode = \
+        dispatch, queue, encode
+    try:
+        loss = model.loss(params, img, labels,
+                          IN_OUT_WR.with_(kernel_impl="pallas"))
+        torch.autograd.grad(loss, list(leaves.values()))
+    finally:
+        ops._dispatch, ops.build_queue, re_.relu_encode = \
+            real_dispatch, real_queue, real_encode
+    c = stats.counts()
+    stats.reset()
+    print(f"{net} step audit: {held}; the step's counts {c}", flush=True)
+    check(held["gemm"] == _sum(c, "gemm:") > 0
+          and held["queue"] == c.get("queue:prefix_sum")
+          and held["encode"] == c.get("encode:act"),
+          f"{net} step audit held every dispatch, queue and encode "
+          f"against its plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -843,10 +1003,16 @@ def dense_f64_step(model, params, img, labels, masks=None):
     return float(loss.detach()), dict(zip(leaves, grads)), caps
 
 
+def rel_l2(g, want):
+    """|g - want| / |want| in float64, L2 over the whole leaf."""
+    return float((g.double() - want).norm() / want.norm())
+
+
 def grad_verdicts(net, grads, grads_x, g64, order, top, g64_x=None):
     """Each leaf of a step's gradients against the dense xla_ref step and,
     in a BN net (``g64`` given), the float64 step: ``(name, f64_rule, ok,
-    message)``.  Leaves at or below the highest flipped layer (index
+    message, reading)``, the reading being the leaf's distance in its
+    rule's norm.  Leaves at or below the highest flipped layer (index
     ``top`` in ``order``) take the float64 rule in a BN net and
     STEP_RTOL_FLIPPED otherwise; those above take KERNEL_RTOL.  The
     xla_ref step is measured against ``g64_x`` where given (a float64 step
@@ -860,21 +1026,22 @@ def grad_verdicts(net, grads, grads_x, g64, order, top, g64_x=None):
         layer = name.split("/")[0]
         below = layer in order and order.index(layer) <= top
         if below and g64 is not None:
-            l2 = {k: float((g.double() - gt).norm() / gt.norm())
-                  for k, g, gt in (("pallas", gp, g64[name]),
-                                   ("xla_ref", gx, g64_x[name]))}
+            l2 = {k: rel_l2(g, gt) for k, g, gt in (("pallas", gp, g64[name]),
+                                                   ("xla_ref", gx,
+                                                    g64_x[name]))}
             rtol = max(KERNEL_RTOL, F64_RATIO * l2["xla_ref"])
             out.append((name, True, l2["pallas"] <= rtol,
                         f"{net} grad {name}: |g - g64|/|g64| = "
                         f"{l2['pallas']:.3e} <= max({KERNEL_RTOL:g}, "
                         f"{F64_RATIO:g} x xla_ref's {l2['xla_ref']:.3e}) "
-                        f"(max|diff|/max|g| against xla_ref {err:.3e})"))
+                        f"(max|diff|/max|g| against xla_ref {err:.3e})",
+                        l2["pallas"]))
             continue
         rtol = STEP_RTOL_FLIPPED if below else KERNEL_RTOL
         out.append((name, False, err <= rtol,
                     f"{net} grad {name}: max|diff|/max|g| = {err:.3e} <= "
                     f"{rtol:g} ({'at or below' if below else 'above'} the "
-                    f"highest flip)"))
+                    f"highest flip)", err))
     return out
 
 
@@ -980,33 +1147,46 @@ def hold_first_step(net, model, init, img, labels, loss_p, grads_p, scan,
               f"float64 {f64}", flush=True)
         g64_x = g64
         if bn == "own_masks":
+            g64_u = g64
             g64, g64_x = (dense_f64_step(model, init, img, labels,
                                          masks=caps[impl])[1]
                           for impl in ("pallas", "xla_ref"))
-    for _, _, ok, what in grad_verdicts(net, grads_p, grads_x, g64, order,
+            # What the flips alone do: each f32 step against the float64
+            # step under no masks (the F64_RATIO form), beside that float64
+            # step against itself under each f32 step's masks.
+            for name, gp in grads_p.items():
+                if name.split("/")[0] in order[:top + 1]:
+                    print(f"{net} flip witness {name}: against the unmasked "
+                          f"float64 step pallas {rel_l2(gp, g64_u[name]):.3e}"
+                          f" xla_ref {rel_l2(grads_x[name], g64_u[name]):.3e};"
+                          f" the float64 step under pallas's masks "
+                          f"{rel_l2(g64[name], g64_u[name]):.3e}, under "
+                          f"xla_ref's {rel_l2(g64_x[name], g64_u[name]):.3e}",
+                          flush=True)
+    for _, _, ok, what, _ in grad_verdicts(net, grads_p, grads_x, g64, order,
                                         top, g64_x=g64_x):
         check(ok, what)
     return grads_x, g64, g64_x, order, top
 
 
-def run_controls(net, model, init, img, labels, scan, held, layer,
-                 f64_only):
+def run_controls(net, model, init, img, labels, scan, held, layer):
     """The first step again with each CONTROLS fault planted in ``layer``:
-    every fault must fail the float64 rule (``f64_only``) or any gradient
-    rule on some leaf, and nothing planted must fail none."""
+    every fault must fail the float64 rule on some leaf, and nothing
+    planted must fail it on none."""
     from repro_torch.core.policy import IN_OUT_WR
 
     grads_x, g64, g64_x, order, top = held
-    rule = "float64 rule" if f64_only else "gradient rules"
+    rule = "float64 rule"
     pol = IN_OUT_WR.with_(kernel_impl="pallas", scan_signed_inputs=scan)
     for kind in CONTROLS:
-        v = [(ok, what) for _, f64_rule, ok, what in grad_verdicts(
+        v = [(ok, what, x) for _, f64_rule, ok, what, x in grad_verdicts(
             net, control_grads(kind, model, init, img, labels, pol, layer),
             grads_x, g64, order, top, g64_x=g64_x)
-            if f64_rule or not f64_only]
-        bad = [what for ok, what in v if not ok]
+            if f64_rule]
+        bad = [what for ok, what, _ in v if not ok]
         print(f"{net} control {kind} in {layer}: the {rule} fails "
-              f"{len(bad)} of {len(v)} leaves", flush=True)
+              f"{len(bad)} of {len(v)} leaves; largest reading "
+              f"{max(x for _, _, x in v):.3e}", flush=True)
         for what in bad[:6]:
             print("    " + what, flush=True)
         check(bool(bad) == (kind != "none"),
@@ -1149,7 +1329,7 @@ def end_to_end(dev, net, image_size=224, width=1.0, num_classes=1000,
         # The float64 rule must see a fault: each planted one is rejected
         # by it, and the same harness with nothing planted is not.
         run_controls(net, model, init, img, labels, scan, held,
-                     CONTROL_LAYER, f64_only=True)
+                     CONTROL_LAYER)
     return launches
 
 
@@ -1167,9 +1347,11 @@ BN_NETS = ("resnet18", "densenet121")
 # where x̂ = -bias/scale is O(1), moved its BN scale gradient 2.8e-4 in
 # relative L2 against the dense step's 4.5e-5.  Under the step's own masks
 # only the arithmetic is compared; the flips are bounded by FLIP_SHARE.
-# The gradient rules must still reject the CONTROLS faults, planted in a
-# dX GEMM that carries σ′ (b2conv2's: b2conv1's ReLU; b2conv1's own dX
-# feeds a residual sum and carries none):
+# There xla_ref's own distance is ~1e-6, so F64_RATIO times it is below
+# KERNEL_RTOL and the limit in force is KERNEL_RTOL in relative L2.  The
+# float64 rule, on every conv layer's leaves, must reject the CONTROLS
+# faults, planted in a dX GEMM that carries σ′ (b2conv2's: b2conv1's ReLU;
+# b2conv1's own dX feeds a residual sum and carries none):
 BN_CONTROL_LAYER = {"resnet18": "b2conv2", "densenet121": "d3c3"}
 STEP_KERNELS = ("relu_encode", "queue_builder", "compact_gemm",
                 "splitk_reduce", "emit_nan_fixup")
@@ -1203,13 +1385,10 @@ def check_path_kernels(path, launches, names):
               f"{path} path launched {name} ({launches[name]} times)")
 
 
-def network_step(dev, net, image_size=224, width=1.0, num_classes=1000,
-                 batch=8):
-    """One full-width IN_OUT_WR step of ``net`` through the kernels, held
-    against the dense xla_ref step (and, in a BN net, a float64 step) by
-    the gradient rules of phases 4-5; returns its launch counts."""
-    import torch
-    from repro_torch.cnn_training import train_steps
+def new_net(dev, net, image_size=224, width=1.0, num_classes=1000,
+            batch=8):
+    """``net``'s model, its weights (seed 0; BN drawn off its init, see
+    BN_SCALE_SD) and the first batch its training step takes."""
     from repro_torch.data.pipeline import image_batch
     from repro_torch.models.cnn import build_cnn
 
@@ -1218,6 +1397,21 @@ def network_step(dev, net, image_size=224, width=1.0, num_classes=1000,
     params = model.init(0, device=dev)
     if net in BN_NETS:
         perturb_batchnorm(params, 1)
+    img, labels = image_batch(0, 0, batch=batch, image_size=image_size,
+                              num_classes=num_classes, device=dev)
+    return model, params, img, labels
+
+
+def network_step(dev, net, image_size=224, width=1.0, num_classes=1000,
+                 batch=8):
+    """One full-width IN_OUT_WR step of ``net`` through the kernels, held
+    against the dense xla_ref step (and, in a BN net, a float64 step) by
+    the gradient rules of phases 4-5; returns its launch counts."""
+    import torch
+    from repro_torch.cnn_training import train_steps
+
+    model, params, img, labels = new_net(dev, net, image_size, width,
+                                         num_classes, batch)
     init = clone_params(params)
     torch.cuda.reset_peak_memory_stats(dev)
     run, launches = launches_of(
@@ -1240,15 +1434,17 @@ def network_step(dev, net, image_size=224, width=1.0, num_classes=1000,
           f"{tag}: every GEMM dispatch is gemm:compact:* ({c})")
     check_path_kernels(net, launches, STEP_KERNELS)
 
-    img, labels = image_batch(0, 0, batch=batch, image_size=image_size,
-                              num_classes=num_classes, device=dev)
     bn = net in BN_NETS
     held = hold_first_step(net, model, init, img, labels, rec["loss"],
                            run["first_grads"], False,
                            "own_masks" if bn else None)
     if bn:
-        run_controls(net, model, init, img, labels, False, held,
-                     BN_CONTROL_LAYER[net], f64_only=False)
+        # Every conv layer's leaves under the float64 rule, wherever the
+        # flips fell: each fault must fail that rule itself.
+        grads_x, g64, g64_x, order, _ = held
+        run_controls(net, model, init, img, labels, False,
+                     (grads_x, g64, g64_x, order, len(order) - 1),
+                     BN_CONTROL_LAYER[net])
     return launches
 
 

@@ -65,16 +65,6 @@ class Branch:
     merge: str                    # "concat" | "add"
 
 
-@dataclasses.dataclass
-class Trace:
-    """Per-conv-layer tensors captured during one training step."""
-    name: str
-    act_out: torch.Tensor         # post-(BN+)ReLU output feature map (NHWC)
-    grad_out: torch.Tensor        # gradient at the same point (post-Hadamard)
-    input_act: torch.Tensor       # the conv's input (post-ReLU of producer)
-    grad_in: torch.Tensor         # gradient arriving at the conv's output
-
-
 def resolved_out_ch(node: ConvNode, in_ch: int) -> int:
     """Depthwise output width follows the input."""
     return in_ch if node.depthwise else node.out_ch
