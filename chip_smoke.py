@@ -78,6 +78,7 @@ SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 on the tensor cores (dense)
 KERNEL_RTOL = 1e-4             # max|kernel - plain| <= KERNEL_RTOL * max|plain|
 # The full-width step against the dense xla_ref step, per gradient leaf as
 # max|Δ| <= rtol * max|g|.  The two forwards sum in different orders, so a
@@ -118,6 +119,10 @@ LOSS_GROWTH = 2.0
 BN_SCALE_SD, BN_BIAS_SD = 0.2, 0.5
 
 FAILURES = []
+# Phase 4's median step ms per net, printed beside phase 7's autotuned step.
+STEP_MS = {}
+# kernel_phase's (report, encoder_detail), for phase 7's step audit.
+REPORTERS = []
 
 
 def check(ok, what):
@@ -197,9 +202,9 @@ def kernel_phase(dev):
     rows = {}
 
     def report(name, case, err, ok, ms, plain_ms, library_ms, bytes_, ops,
-               rel=None, plan=None):
+               rel=None, plan=None, flop_rate=F32_FLOP_PER_S):
         bound_b = bytes_ / HBM_BYTES_PER_S * 1e3
-        bound_o = ops / F32_FLOP_PER_S * 1e3
+        bound_o = ops / flop_rate * 1e3
         bound = max(bound_b, bound_o)
         line = {"kernel": name, "case": case, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
@@ -733,14 +738,106 @@ def kernel_phase(dev):
     # order: a layer's first dispatch is its forward, a transposed A its WG.
     for net in NEW_NETS:
         audit_step(dev, net, report, encoder_detail)
+    bf16_cases(dev, report, encoder_detail, time_ms, gemm_case)
+    REPORTERS[:] = [report, encoder_detail]
+    # The overflowing dispatch above left a device overflow flag pending
+    # for the autotune cache; phase 7 starts from a fresh cache.
+    from repro_torch.kernels import autotune
+    autotune.reset()
     return rows
 
 
-def audit_step(dev, net, report, detail, **geom):
-    """One IN_OUT_WR step of ``net`` (phase 6's weights and batch) with
-    every K1 encode, K2 queue and GEMM dispatch in it held against its
-    plain version on the same inputs as it returns (see kernel_phase);
-    ``report`` prints a kernel line, ``detail`` an encoder's plan."""
+def bf16_cases(dev, report, detail, time_ms, gemm_case):
+    """K1, K5 and the masked GEMM (compact and predicated) at VGG16 conv4's
+    dX shape with bf16 operands and bf16 outputs, against their plain
+    versions.  On the card the wrappers widen bf16 operands to f32 and
+    launch the f32 kernels; ``widen_ms`` is that widening alone, beside the
+    f32 cases of the same shape above.  A bf16 output is the f32 result
+    rounded once, so it is held to the f32 rule plus one bf16 rounding step
+    (2^-8 of each element); bitmaps exactly."""
+    import torch
+    from repro_torch.kernels import bitmap_scan as k5
+    from repro_torch.kernels import masked_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import relu_encode as re_
+
+    bf = torch.bfloat16
+    m, n = 100352, 128
+    z = torch.randn(m, n, device=dev).to(bf)
+    for gran in ((1, 128), (8, 16)):
+        y, bits = re_.relu_encode(z, gran)
+        yp, bp = re_.relu_encode_plain(z, gran)
+        ok = y.dtype == bf and torch.equal(y, yp) and torch.equal(bits, bp)
+        report("relu_encode", f"conv4 dX-shaped {m}x{n} bf16 gran {gran}",
+               float((y.float() - yp.float()).abs().max()), ok,
+               time_ms(lambda: re_.relu_encode(z, gran)),
+               time_ms(lambda: re_.relu_encode_plain(z, gran)),
+               time_ms(lambda: torch.relu(z)),
+               4.0 * m * n + 4.0 * bits.numel(), 0.0,
+               plan={"widen_ms": time_ms(lambda: z.float())})
+        s_ = k5.bitmap_scan(z, gran)
+        sp = k5.bitmap_scan_plain(z, gran)
+        report("bitmap_scan", f"conv4 dX-shaped {m}x{n} bf16 gran {gran}",
+               0.0 if torch.equal(s_, sp) else 1.0, torch.equal(s_, sp),
+               time_ms(lambda: k5.bitmap_scan(z, gran)),
+               time_ms(lambda: k5.bitmap_scan_plain(z, gran)),
+               time_ms(lambda: z.ne(0)),
+               2.0 * m * n + 4.0 * s_.numel(), 0.0,
+               plan={"widen_ms": time_ms(lambda: z.float())})
+
+    g, m, k, n, block = 1, 100352, 1152, 128, (128, 128, 128)
+    # the masks of the f32 conv4 dX case (no B mask)
+    a, b, om, am, bmk, mult = gemm_case(g, m, k, n, block, b_mask=False)
+    a16, b16 = a.to(bf), b.to(bf)
+    emit = (1, 128)
+    widen_ms = time_ms(lambda: (a16.float(), b16.float()))
+    n_bits = m * (n // emit[1])
+    flops, with_mult = gemm_traffic((g, m, k, n), block, om, am, bmk, mult,
+                                    torch.empty(n_bits))
+    _, f32_ops = gemm_traffic((g, m, k, n), block, om, am, bmk, None, None)
+    # bf16 operands and output (2 bytes), the f32 multiplier and bits
+    bytes_ = (f32_ops - 4.0 * m * n) / 2 + 2.0 * m * n \
+        + (with_mult - f32_ops)
+    for schedule in ("compact", "predicated"):
+        spec = ops.GemmSpec(block=block, schedule=schedule,
+                            epilogue=("sigma_prime", "bitmap_emit"),
+                            emit_gran=emit, out_dtype=bf)
+        masks = (om[0], am[0], None)
+
+        def run():
+            return ops.sparse_gemm(a16[0], b16[0], masks, spec,
+                                   epilogue_mult=mult[0])
+        got, bits = run()
+        want32, want_bits = mm.grouped_masked_matmul_plain(
+            a16, b16, om, am, bmk, block=block, epilogue_mult=mult,
+            emit_gran=emit, out=torch.zeros(g, m, n, device=dev),
+            bits=torch.zeros(g, m, n // emit[1], dtype=torch.int32,
+                             device=dev))
+        want = want32[0].to(bf).float()
+        diff = (got.float() - want).abs()
+        limit = KERNEL_RTOL * float(want.abs().max()) + want.abs() * 2 ** -8
+        ok = got.dtype == bf and bool((diff <= limit).all()) \
+            and torch.equal(bits, want_bits[0])
+        report(f"{schedule}_gemm", f"conv4 dX 100352x1152x128 bf16 "
+               f"operands, bf16 out ({schedule} dispatch)",
+               float(diff.max()), ok, time_ms(run),
+               time_ms(lambda: mm.grouped_masked_matmul_plain(
+                   a16, b16, om, am, bmk, block=block, epilogue_mult=mult,
+                   emit_gran=emit, out=torch.zeros(g, m, n, device=dev),
+                   bits=torch.zeros(g, m, n // emit[1], dtype=torch.int32,
+                                    device=dev))),
+               time_ms(lambda: torch.matmul(a16[0], b16[0])), bytes_, flops,
+               float(diff.max()) / max(float(want.abs().max()), 1e-30),
+               {"widen_ms": widen_ms}, flop_rate=BF16_FLOP_PER_S)
+
+
+def audit_step(dev, net, report, detail, policy=None, state=None, **geom):
+    """One IN_OUT_WR step of ``net`` (phase 6's weights and batch, or
+    ``state`` = (model, params, img, labels)) under ``policy`` (default
+    ``IN_OUT_WR`` on the kernels) with every K1 encode, K2 queue and GEMM
+    dispatch in it held against its plain version on the same inputs as it
+    returns (see kernel_phase); ``report`` prints a kernel line, ``detail``
+    an encoder's plan.  Returns the dispatches held per (schedule, block)."""
     import torch
     from repro_torch.core.policy import IN_OUT_WR
     from repro_torch.kernel_times import event_ms as time_ms
@@ -750,8 +847,10 @@ def audit_step(dev, net, report, detail, **geom):
     from repro_torch.kernels import relu_encode as re_
     from repro_torch.models.cnn import param_leaves
 
-    model, params, img, labels = new_net(dev, net, **geom)
+    model, params, img, labels = state or new_net(dev, net, **geom)
     params = clone_params(params)
+    policy = policy or IN_OUT_WR.with_(kernel_impl="pallas")
+    schedules = {}
     real_dispatch, real_queue = ops._dispatch, ops.build_queue
     real_encode = re_.relu_encode
     seen, held, timing = set(), {"gemm": 0, "queue": 0, "encode": 0}, []
@@ -793,6 +892,11 @@ def audit_step(dev, net, report, detail, **geom):
         ok = ok and torch.equal(out == 0, want == 0) and (
             bits is None or torch.equal(bits, want_bits))
         held["gemm"] += 1
+        sched = (spec.schedule, spec.block)
+        schedules[sched] = schedules.get(sched, 0) + 1
+        kname = {"compact": "compact_gemm",
+                 "predicated": "predicated_gemm"}.get(spec.schedule,
+                                                      "dense_schedule")
         emit = spec.emit_gran if spec.emits_bitmap else None
         plan = {"path": mm.gemm_path(g, m, k, n, spec.block),
                 "splits": mm.split_plan(g, m, k, n, spec.block),
@@ -800,9 +904,9 @@ def audit_step(dev, net, report, detail, **geom):
         case = (f"{net} {layer} {role} {g}x{m}x{k}x{n}"
                 + (" sigma-prime" if mult is not None else "")
                 + ("" if emit is None else f" emit {emit}"))
-        if not once(("gemm", g, m, k, n, spec.block, emit,
+        if not once(("gemm", g, m, k, n, spec.block, spec.schedule, emit,
                      mult is None, tuple(x is None for x in masks))):
-            check(ok, f"compact_gemm {case} matches its plain version "
+            check(ok, f"{kname} {case} matches its plain version "
                   f"({rel:.2e} of max|plain|)")
             return out, bits
         ni, nk, nj = shapes.grid_shape((m, k, n), spec.block)
@@ -813,7 +917,8 @@ def audit_step(dev, net, report, detail, **geom):
                                      bmk, mult, bits)
         timing.append(True)
         try:
-            report("compact_gemm", case + " (K2 -> K3 dispatch)", err,
+            report(kname, case + f" ({spec.schedule} dispatch, block "
+                   f"{spec.block})", err,
                    ok, time_ms(lambda: real_dispatch(a, b, masks, spec,
                                                      mult)),
                    time_ms(lambda: plain_dispatch(a, b, masks, spec,
@@ -866,8 +971,7 @@ def audit_step(dev, net, report, detail, **geom):
     ops._dispatch, ops.build_queue, re_.relu_encode = \
         dispatch, queue, encode
     try:
-        loss = model.loss(params, img, labels,
-                          IN_OUT_WR.with_(kernel_impl="pallas"))
+        loss = model.loss(params, img, labels, policy)
         torch.autograd.grad(loss, list(leaves.values()))
     finally:
         ops._dispatch, ops.build_queue, re_.relu_encode = \
@@ -876,10 +980,11 @@ def audit_step(dev, net, report, detail, **geom):
     stats.reset()
     print(f"{net} step audit: {held}; the step's counts {c}", flush=True)
     check(held["gemm"] == _sum(c, "gemm:") > 0
-          and held["queue"] == c.get("queue:prefix_sum")
+          and held["queue"] == c.get("queue:prefix_sum", 0)
           and held["encode"] == c.get("encode:act"),
           f"{net} step audit held every dispatch, queue and encode "
           f"against its plain version")
+    return schedules
 
 
 # ---------------------------------------------------------------------------
@@ -1316,6 +1421,7 @@ def end_to_end(dev, net, image_size=224, width=1.0, num_classes=1000,
         check(launches[name] > 0,
               f"{net} main path launched {name} ({launches[name]} times)")
     step_ms = statistics.median(r["seconds"] * 1e3 for r in wr["steps"][1:])
+    STEP_MS[net] = step_ms
     print(f"{net} IN_OUT_WR median step ms (steps 2-3): {step_ms:.1f}; "
           f"main path {main_s:.1f} s; peak memory {peak_gb:.2f} GiB",
           flush=True)
@@ -1594,6 +1700,299 @@ def experiment_phase(dev):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: guarded LM training and the autotuner
+# ---------------------------------------------------------------------------
+
+# SmolLM-360M as ``python -m repro_torch.launch.train --arch smollm-360m``
+# runs it: batch 8 x 128 tokens, f32 params, AdamW.
+LM_ARCH, LM_BATCH, LM_SEQ, LM_STEPS, LM_CUT = "smollm-360m", 8, 128, 6, 3
+# The first step against the same step in float64 (the port's own code,
+# every upcast at float64): the loss within LM_LOSS_RTOL relative, every
+# gradient leaf within LM_GRAD_RTOL in relative L2 norm.  Each planted
+# fault must fail the rule and the clean step must pass it.
+LM_LOSS_RTOL, LM_GRAD_RTOL = 1e-5, 1e-4
+LM_CONTROLS = ("none", "causal_mask_dropped", "ffn_output_scaled")
+LM_CONTROL_LAYER, LM_CONTROL_SCALE = 7, 1 + 1e-3
+# The resumed run against the uninterrupted one, when not bit-equal.
+LM_RESUME_RTOL = 1e-6
+# Phase 4's geometry.
+AUTOTUNE_GEOM = dict(image_size=224, width=1.0, num_classes=1000, batch=8)
+
+
+def lm_first_step_rule(dev, cfg, tcfg):
+    """The first step's loss and gradients against float64, and the rule
+    against its LM_CONTROLS faults."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models import attention, common
+    from repro_torch.models.transformer import lm_init, lm_loss
+
+    params = lm_init(tcfg.seed, cfg, dtype=torch.float32, device=dev)
+    batch = lm_batch(tcfg.seed, 0, batch=LM_BATCH, seq_len=LM_SEQ,
+                     vocab=cfg.vocab_size, device=dev)
+
+    def step(p, dtype, control="none"):
+        leaves = [x.detach().to(dtype).requires_grad_(True)
+                  for x in tree.leaves(p)]
+        tp = tree.unflatten_like(p, leaves)
+        if control == "ffn_output_scaled":
+            w = tp["layers"]["b0"]["ffn"]["w_down"]
+            scale = torch.ones(w.shape[0], 1, 1, dtype=dtype, device=dev)
+            scale[LM_CONTROL_LAYER] = LM_CONTROL_SCALE
+            tp["layers"]["b0"]["ffn"]["w_down"] = w * scale
+        real = attention.blockwise_attention
+        if control == "causal_mask_dropped":
+            attention.blockwise_attention = \
+                lambda *a, **kw: real(*a, **{**kw, "causal": False})
+        try:
+            with common.upcast(dtype):
+                loss = lm_loss(tp, batch, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            attention.blockwise_attention = real
+        return float(loss), grads
+
+    loss64, g64 = step(params, torch.float64)
+    paths = [p for p, _ in tree.leaves_with_paths(params)]
+    verdicts = {}
+    for control in LM_CONTROLS:
+        loss32, g32 = step(params, torch.float32, control)
+        loss_rel = abs(loss32 - loss64) / abs(loss64)
+        rels = [float((a.double() - b).norm() / b.norm().clamp_min(1e-300))
+                for a, b in zip(g32, g64)]
+        worst = max(range(len(rels)), key=rels.__getitem__)
+        passed = loss_rel <= LM_LOSS_RTOL and rels[worst] <= LM_GRAD_RTOL
+        verdicts[control] = passed
+        print(f"smollm-360m first step vs float64 [{control}]: loss "
+              f"{loss32:.7f} vs {loss64:.7f} (rel {loss_rel:.2e}); worst "
+              f"gradient leaf {paths[worst]} rel L2 {rels[worst]:.2e}; "
+              f"{'passes' if passed else 'fails'} the rule", flush=True)
+    check(verdicts["none"], f"smollm-360m first step within "
+          f"{LM_LOSS_RTOL} (loss) and {LM_GRAD_RTOL} (every gradient leaf, "
+          f"relative L2) of float64")
+    for control in LM_CONTROLS[1:]:
+        check(not verdicts[control],
+              f"the float64 rule rejects the planted {control}")
+
+
+def lm_phase(dev):
+    """(a) guarded SmolLM-360M training at full width: run A (6 steps, a
+    StepGuard, no checkpoints), run B (3 steps into a checkpoint dir), run
+    C (resumed from it to step 6); (b) the first step against float64.
+    Returns the kernel launches of (a)."""
+    import shutil
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import kernels, tree
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.runtime.guards import StepGuard
+
+    cfg = ARCHS[LM_ARCH]
+    tcfg = TrainConfig(total_steps=LM_STEPS, checkpoint_every=0,
+                       keep_checkpoints=1, seed=0)
+    ckdir = os.path.join(HERE, "build", "smoke_lm_checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def run(steps, ckpt_dir=None):
+        guard = StepGuard()
+        stamps = []
+        t0 = time.perf_counter()
+        out = train_loop(cfg, tcfg, batch_size=LM_BATCH, seq_len=LM_SEQ,
+                         steps=steps, ckpt_dir=ckpt_dir, log_every=0,
+                         guard=guard, device=dev,
+                         on_metrics=lambda i, m: stamps.append(
+                             (i, time.perf_counter(), m["loss"])))
+        torch.cuda.synchronize(dev)
+        return out, guard, [t0] + [t for _, t, _ in stamps], \
+            time.perf_counter()
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    a, guard_a, ts_a, _ = run(LM_STEPS)
+    n_params = sum(x.numel() for x in tree.leaves(a["params"]))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses_a = a["losses"]
+    del a
+    torch.cuda.empty_cache()
+    b, guard_b, ts_b, end_b = run(LM_CUT, ckdir)
+    save_s = end_b - ts_b[-1]
+    del b
+    torch.cuda.empty_cache()
+    size_gb = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(ckdir) for f in fs) / 1e9
+    c, guard_c, ts_c, _ = run(LM_STEPS, ckdir)
+    launches = kernels.launch_counts()
+    # restore alone: the checkpoint into the resumed run's tree
+    tmpl = {"params": c["params"], "opt": c["opt_state"]}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    step, _ = ckpt.restore(ckdir, tmpl)
+    torch.cuda.synchronize(dev)
+    restore_s = time.perf_counter() - t0
+    del tmpl
+    losses_c, resumed = c["losses"], c["resumed_from"]
+    del c
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    step_ms = [(t1 - t0) * 1e3 for t0, t1 in zip(ts_a, ts_a[1:])]
+    med = statistics.median(step_ms[2:6])
+    print(f"{LM_ARCH}: {n_params / 1e6:.1f} M params, batch {LM_BATCH} x "
+          f"{LM_SEQ}; run A losses {losses_a}; step ms {step_ms}; median "
+          f"of steps 2-5 {med:.1f} ms; peak memory {peak_gb:.2f} GiB",
+          flush=True)
+    print(f"{LM_ARCH}: checkpoint of step {LM_CUT} {size_gb:.2f} GB, save "
+          f"{save_s:.2f} s (the final save of run B), restore {restore_s:.2f}"
+          f" s (step {step}); run C resumed from step {resumed}, losses "
+          f"{losses_c}", flush=True)
+    # run C's guard resumes run B's state, its verdict history included
+    verdicts = [v for _, v in guard_a.verdicts + guard_b.verdicts] + \
+        [v for s_, v in guard_c.verdicts if s_ >= LM_CUT]
+    check(len(verdicts) == LM_STEPS + LM_CUT + (LM_STEPS - LM_CUT)
+          and set(verdicts) == {"ok"},
+          f"{LM_ARCH}: every guarded step's verdict is ok ({verdicts})")
+    check(all(math.isfinite(x) for x in losses_a + losses_c),
+          f"{LM_ARCH}: finite losses")
+    tail = losses_a[LM_CUT:]
+    equal = tail == losses_c
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses_c, tail))
+    print(f"{LM_ARCH}: resumed losses {'bit-equal to' if equal else 'differ from'}"
+          f" the uninterrupted run's (max rel {rel:.2e})", flush=True)
+    check(resumed == LM_CUT and len(losses_c) == len(tail)
+          and (equal or rel <= LM_RESUME_RTOL),
+          f"{LM_ARCH}: run C's losses for steps {LM_CUT}-{LM_STEPS - 1} "
+          f"equal run A's (bit-equal, or within {LM_RESUME_RTOL})")
+    check(sum(launches.values()) == 0,
+          f"{LM_ARCH}: the dense decoder launches none of the sparse "
+          f"kernels ({launches})")
+    lm_first_step_rule(dev, cfg, tcfg)
+    return launches
+
+
+def chaos_phase(dev):
+    """(c) the port's chaos matrix on the card; returns its launches."""
+    from repro_torch.runtime import faults
+    rows, launches = launches_of(faults.run_matrix, device=dev)
+    for r in rows:
+        print(f"chaos {'PASS' if r.ok else 'FAIL'} {r.fault}: detected="
+              f"{r.detected} survived={r.survived} via {r.guard_key}; "
+              f"{r.detail}", flush=True)
+        check(r.ok, f"chaos case {r.fault} detected and survived on the card")
+    for name, why in faults.NOT_PORTED.items():
+        print(f"chaos NOT PORTED {name}: {why}", flush=True)
+    check(len(rows) == 7, f"{len(rows)} of 7 ported chaos cases ran")
+    return launches
+
+
+def d2h_and_syncs(fn):
+    """Device-to-host copies and stream/device synchronizations in ``fn``,
+    from the profiler's trace."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+    copies = syncs = 0
+    for e in prof.key_averages():
+        if "Memcpy DtoH" in e.key:
+            copies += e.count
+        if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs += e.count
+    return copies, syncs
+
+
+def autotune_phase(dev):
+    """(d) VGG16 IN_OUT_WR with ``autotune=True`` at phase 4's geometry:
+    five steps, then one step with every dispatch held against its plain
+    version, the decision log, the step time beside phase 4's, and the
+    device-to-host copies and syncs of a step with autotune off and on."""
+    import collections
+    from repro_torch import kernels
+    from repro_torch.cnn_training import train_steps
+    from repro_torch.core.policy import IN_OUT_WR
+    from repro_torch.data.pipeline import image_batch
+    from repro_torch.kernels import autotune, stats
+
+    geom = dict(net="vgg16", device=dev, **AUTOTUNE_GEOM)
+    autotune.reset()
+    stats.reset()
+    kernels.reset_launch_counts()
+    run = train_steps(steps=5, policy="IN_OUT_WR", kernel_impl="pallas",
+                      autotune_gemms=True, **geom)
+    launches = kernels.launch_counts()
+    for i, rec in enumerate(run["steps"]):
+        print(f"vgg16 autotune step {i}: loss {rec['loss']:.6f} "
+              f"{rec['seconds'] * 1e3:.1f} ms counts {rec['counts']} "
+              f"launches {rec['launches']}", flush=True)
+    rows = autotune.log_rows()
+    events = collections.Counter(r["event"] for r in rows)
+    chosen = collections.Counter((r["event"], r["schedule"], r["block"],
+                                  r["shape"]) for r in rows
+                                 if r["event"] != "hit")
+    print(f"vgg16 autotune decision log: {len(rows)} rows; events "
+          f"{dict(events)}", flush=True)
+    for (event, sched, block, shape), n in sorted(chosen.items()):
+        print(f"  {event}: {sched} block {block} shape {shape} ({n}x)",
+              flush=True)
+    check(events.get("measured", 0) + events.get("retune", 0) > 0,
+          "vgg16 autotune made measured decisions in five steps")
+    check(all(math.isfinite(r["loss"]) for r in run["steps"]),
+          "vgg16 autotune: finite losses")
+    step_ms = statistics.median(r["seconds"] * 1e3
+                                for r in run["steps"][2:])
+    print(f"vgg16 IN_OUT_WR step ms, median of steps 3-5: autotune on "
+          f"{step_ms:.1f}; phase 4 (autotune off, steps 2-3) "
+          f"{STEP_MS.get('vgg16', float('nan')):.1f}", flush=True)
+
+    model, params = run["model"], run["params"]
+    img, labels = image_batch(0, 5, batch=geom["batch"],
+                              image_size=geom["image_size"],
+                              num_classes=geom["num_classes"], device=dev)
+    report, detail = REPORTERS
+    held = audit_step(dev, "vgg16", report, detail,
+                      policy=IN_OUT_WR.with_(kernel_impl="pallas",
+                                             autotune=True),
+                      state=(model, params, img, labels))
+    print(f"vgg16 autotune audit step: dispatches by (schedule, block) "
+          f"{held}", flush=True)
+
+    # With autotune on from the warm cache, then off from a fresh one (as
+    # phase 4 runs it: no spec of an autotune resolution, so no telemetry).
+    per = {}
+    for on in (True, False):
+        autotune.fold_pending()      # the audited step's samples
+        if not on:
+            autotune.reset()
+        per[on] = d2h_and_syncs(lambda: train_steps(
+            steps=1, policy="IN_OUT_WR", kernel_impl="pallas",
+            autotune_gemms=on, params=params, **geom))
+        print(f"vgg16 step with autotune {'on' if on else 'off'}: "
+              f"{per[on][0]} device-to-host copies, {per[on][1]} stream/"
+              f"device syncs (profiler)", flush=True)
+    check(per[True][0] - per[False][0] <= 1
+          and per[True][1] - per[False][1] <= 1,
+          "autotune adds at most one device-to-host copy and one sync a "
+          "step")
+    autotune.reset()
+    stats.reset()
+    return launches
+
+
+def guarded_lm_phase(dev):
+    """Phase 7: guarded LM training and the autotuner."""
+    t0 = time.perf_counter()
+    by_path = {"lm_smollm360m": lm_phase(dev),
+               "chaos_matrix": chaos_phase(dev),
+               "vgg16_autotune": autotune_phase(dev)}
+    print(f"phase 7 (guarded LM training, chaos, autotune): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
 def main():
     try:
         import torch
@@ -1633,6 +2032,7 @@ def main():
     rows = kernel_phase(dev)
     by_path = {net: end_to_end(dev, net) for net in PATHS}
     by_path.update(experiment_phase(dev))
+    by_path.update(guarded_lm_phase(dev))
 
     mm_cu = "src/repro_torch/csrc/masked_matmul.cu"
     mm_py = "src/repro/kernels/masked_matmul.py"

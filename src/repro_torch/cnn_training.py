@@ -23,7 +23,7 @@ import torch
 from repro_torch.core.policy import DC, SCENARIOS
 from repro_torch.data.pipeline import image_batch
 from repro_torch.device import resolve_device
-from repro_torch.kernels import launch_counts, stats
+from repro_torch.kernels import autotune, launch_counts, stats
 from repro_torch.models.cnn import NETWORKS, build_cnn, param_leaves
 
 
@@ -52,7 +52,7 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
                 width: float = 1.0, num_classes: int = 1000, batch: int = 8,
                 policy: str = "IN_OUT_WR", kernel_impl: str = "pallas",
                 builder: str = "prefix_sum", lr: float = 0.01,
-                scan_signed_inputs: bool = False,
+                scan_signed_inputs: bool = False, autotune_gemms: bool = False,
                 seed: int = 0, device="cuda", params: Optional[dict] = None,
                 keep_first_grads: bool = False,
                 relu_live: bool = False) -> dict:
@@ -61,7 +61,10 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
 
     ``builder`` is the compact-queue builder (``"prefix_sum"`` or
     ``"argsort"``); ``scan_signed_inputs`` sets the policy field of that
-    name (a ``bitmap_scan`` of the signed image and head input).
+    name (a ``bitmap_scan`` of the signed image and head input);
+    ``autotune_gemms`` sets ``autotune`` (the GEMM schedules and tiles from
+    the autotune cache, whose device-side telemetry is folded once a step,
+    ``kernels.autotune.fold_pending``).
     ``params`` (updated in place) defaults to ``model.init(seed)``.  Each entry of ``steps`` holds the step's
     ``loss``, wall ``seconds`` (ended by a device synchronize), and the
     ``counts``/``launches`` it added to ``kernels.stats`` and the kernel
@@ -79,7 +82,8 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
         params = model.init(seed, device=dev)
     pol = SCENARIOS[policy].with_(kernel_impl=kernel_impl,
                                   queue_builder=builder,
-                                  scan_signed_inputs=scan_signed_inputs)
+                                  scan_signed_inputs=scan_signed_inputs,
+                                  autotune=autotune_gemms)
     leaves = param_leaves(params)
     records = []
     first_grads = None
@@ -98,6 +102,7 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
             for p, g in zip(leaves.values(), grads):
                 p.sub_(lr * g)
         loss_v = float(loss.detach())
+        autotune.fold_pending()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0

@@ -11,16 +11,16 @@ hand-written kernels (the name is kept from the reference so policies read
 the same in both packages); ``"xla_ref"`` — the numerically identical dense
 schedule in plain torch.
 
-``SparsityPolicy.gemm_spec(...)`` is the ONE policy→kernel resolution point.
-Without autotuning it resolves statically; the reference's quarantine clamp
-is the identity while nothing is quarantined, which is always the case
-until the guard/autotune layers are ported.
+``SparsityPolicy.gemm_spec(...)`` is the ONE policy→kernel resolution point:
+statically, then through the autotune cache (``autotune=True``) or clamped
+to the key's quarantine level (``autotune=False``), as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal, Optional, Tuple
 
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels.ops import GemmSpec
 from repro_torch.kernels.shapes import ceil_to
 
@@ -41,12 +41,12 @@ class SparsityPolicy:
                                           # after the GEMM (ablation)
     scan_signed_inputs: bool = False      # FP: opt-in bitmap_scan of signed
                                           # raw inputs (no ReLU to fuse into)
-    autotune: bool = False                # not ported yet: raises if set
+    autotune: bool = False                # measured-stats schedule/tile
+                                          # selection through the
+                                          # kernels/autotune cache; the
+                                          # static choice is its default
 
     def __post_init__(self):
-        if self.autotune:
-            raise NotImplementedError(
-                "autotune=True: the autotuner is not ported yet")
         if self.kernel_impl not in ("pallas", "xla_ref"):
             raise ValueError(f"unknown kernel_impl {self.kernel_impl!r}")
 
@@ -72,7 +72,12 @@ class SparsityPolicy:
 
         With ``dims`` the tile is the degenerate ``grouped_gemm_block``
         shape, else the policy's ``block``.  ``kernel_impl != "pallas"`` ⇒
-        "dense", ``work_redistribution`` ⇒ "compact", else "predicated"."""
+        "dense", ``work_redistribution`` ⇒ "compact", else "predicated".
+        With ``autotune=True`` that static resolution is the DEFAULT and
+        the ``kernels/autotune`` cache may retarget the schedule (and, with
+        ``dims``, the tile edges) from measured live-tile stats; without
+        it the spec is clamped to its key's quarantine level, so a demoted
+        spec stays demoted on both paths."""
         block = grouped_gemm_block(self, dims, grans) \
             if dims is not None else self.block
         if self.kernel_impl != "pallas":
@@ -81,12 +86,16 @@ class SparsityPolicy:
             schedule = "compact"
         else:
             schedule = "predicated"
-        return GemmSpec(
+        spec = GemmSpec(
             block=block,
             groups=groups,
             schedule=schedule,
             queue_builder=self.queue_builder,
         )
+        if self.autotune:
+            # resolve() applies the quarantine clamp inside the cache.
+            return _autotune.resolve(spec, dims=dims, grans=grans)
+        return _autotune.apply_quarantine(spec, dims=dims)
 
 
 def grouped_gemm_block(

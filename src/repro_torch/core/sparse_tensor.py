@@ -118,12 +118,29 @@ def conv_channel_granularity(channels: int,
 _GRAD_BITMAP_RING_SIZE = 64
 _GRAD_BITMAPS: list = []
 
+# Fault-injection tap (``runtime/faults.py``): an installed hook may veto a
+# registration (the "registry drop" fault class), so the chaos matrix can
+# show a missed hand-off is detected (``registry:miss``) and survived.
+_REGISTER_HOOK = None
+
+
+def set_register_hook(fn):
+    """Install (or, with None, remove) the registry fault hook; returns the
+    previous hook.  The hook receives ``(obj, bitmap, gran)`` and returns
+    False to drop the registration."""
+    global _REGISTER_HOOK
+    prev, _REGISTER_HOOK = _REGISTER_HOOK, fn
+    return prev
+
 
 def register_grad_bitmap(obj, bitmap: Optional[torch.Tensor],
                          gran: Tuple[int, int]) -> None:
     """Record ``bitmap`` (granularity ``gran``) as describing the 2-D view
     of gradient tensor ``obj``.  No-op when ``bitmap`` is None."""
     if bitmap is None:
+        return
+    if _REGISTER_HOOK is not None \
+            and _REGISTER_HOOK(obj, bitmap, gran) is False:
         return
     _GRAD_BITMAPS.append((obj, bitmap, gran))
     if len(_GRAD_BITMAPS) > _GRAD_BITMAP_RING_SIZE:

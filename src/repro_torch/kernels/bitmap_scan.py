@@ -35,14 +35,17 @@ def bitmap_scan_plain(x: torch.Tensor, gran: Tuple[int, int]) -> torch.Tensor:
 
 
 def bitmap_scan(x: torch.Tensor, gran: Tuple[int, int]) -> torch.Tensor:
-    """Bitmap of a 2-D float32 ``x`` at granularity ``gran``.  Launches K5
-    for a CUDA tensor; runs the plain version for a CPU tensor."""
+    """Bitmap of a 2-D float32 or bfloat16 ``x`` at granularity ``gran``.
+    Launches K5 for a CUDA tensor (a bf16 ``x`` widened to f32 for it,
+    which changes no sign and no NaN); runs the plain version for a CPU
+    tensor."""
     global launches
     if x.dim() != 2:
         raise ValueError(f"bitmap_scan wants a 2-D tensor, got "
                          f"{tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(f"bitmap_scan: only float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"bitmap_scan: float32 or bfloat16 only, got {x.dtype}")
     gr, gc = gran
     if gr < 1 or gc < 1:
         raise ValueError(f"bad granularity {gran}")
@@ -53,6 +56,8 @@ def bitmap_scan(x: torch.Tensor, gran: Tuple[int, int]) -> torch.Tensor:
     m, n = x.shape
     if n > 1 and x.stride(1) != 1:
         raise ValueError("bitmap_scan: x must have unit column stride")
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32)
     lib = _build.load()
     bits = torch.empty((-(-m // gr), -(-n // gc)), dtype=torch.int32,
                        device=x.device)

@@ -61,6 +61,12 @@ standard path, split as ``split_plan`` says), K6 in predicated mode and K7
 in a compacted-output mode where the tile of slot s goes to slot s of an
 (S, bm, bn) buffer, slots s ≥ n_active staying zero.
 
+Operands may be float32 or bfloat16.  A product of two bf16 values is exact
+in f32, so the wrappers widen bf16 operands to f32 on the card and launch
+the f32 kernels, which then compute what the reference's bf16 kernels
+compute (f32 accumulation) up to summation order; the plain versions do
+the same in f32.  A native bf16 operand load is ROADMAP B7.
+
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors.  Both forms write into a caller-provided zero-filled
 ``out``/``bits`` when given, so the compact launch and its overflow
@@ -85,6 +91,8 @@ queue_member_launches = 0
 emit_fixup_launches = 0
 
 _PREDICATED, _COMPACT, _COMPACT_OUT = 0, 1, 2
+
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 Result = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -210,9 +218,10 @@ def _validate(a, b, out_mask, a_mask, b_mask, block, mult):
     g2, k2, n = b.shape
     if g != g2 or k != k2:
         raise ValueError(f"shape mismatch {tuple(a.shape)} @ {tuple(b.shape)}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
+    if a.dtype not in OPERAND_DTYPES or b.dtype not in OPERAND_DTYPES:
         raise NotImplementedError(
-            f"masked GEMM: only float32 operands, got {a.dtype}, {b.dtype}")
+            f"masked GEMM: operands must be float32 or bfloat16, got "
+            f"{a.dtype}, {b.dtype}")
     dev = a.device
     if b.device != dev or dev.type not in ("cpu", "cuda"):
         raise ValueError(f"operands on {a.device} and {b.device}")
@@ -267,6 +276,12 @@ def _check_queue(rows, cols, count, device):
                              f"tensors on {device}")
     if rows.numel() != cols.numel() or count.numel() != 1:
         raise ValueError("queue arrays disagree in length")
+
+
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand widened to f32 (exact) for the f32 kernels; an f32
+    operand as it is."""
+    return t if t.dtype == torch.float32 else t.to(torch.float32)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -570,8 +585,9 @@ def grouped_masked_matmul_kernel(
     if n_live is not None and (n_live.dtype != torch.int32
                                or n_live.device != a.device):
         raise ValueError("n_live must be int32 on the operands' device")
-    _launch(_PREDICATED, a, b, out, bits, out_mask, a_mask, b_mask,
-            epilogue_mult, None, None, n_live, capacity, block, emit_gran)
+    _launch(_PREDICATED, _widen(a), _widen(b), out, bits, out_mask, a_mask,
+            b_mask, epilogue_mult, None, None, n_live, capacity, block,
+            emit_gran)
     predicated_launches += 1
     return out, bits
 
@@ -602,8 +618,8 @@ def grouped_compact_masked_matmul_kernel(
             a, b, fi, jj, n_live, a_mask, b_mask, block=block,
             epilogue_mult=epilogue_mult, emit_gran=emit_gran, out=out,
             bits=bits)
-    _launch(_COMPACT, a, b, out, bits, None, a_mask, b_mask, epilogue_mult,
-            fi, jj, n_live, fi.numel(), block, emit_gran)
+    _launch(_COMPACT, _widen(a), _widen(b), out, bits, None, a_mask, b_mask,
+            epilogue_mult, fi, jj, n_live, fi.numel(), block, emit_gran)
     compact_launches += 1
     return out, bits
 
@@ -612,13 +628,11 @@ def grouped_compact_masked_matmul_kernel(
 # The 2-D launches K6 and K7 (block-aligned, float32, no bitmap emit)
 # ---------------------------------------------------------------------------
 
-def _check_2d(a, b, block, out_dtype):
-    """The 2-D launches take block-aligned float32 requests only."""
+def _check_2d(a, b, block):
+    """The 2-D launches take block-aligned requests only."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad 2-D operands {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
-    if out_dtype != torch.float32:
-        raise NotImplementedError(f"out_dtype {out_dtype}: only float32")
     (m, k), n = a.shape, b.shape[1]
     bm, bk, bn = block
     if m % bm or k % bk or n % bn:
@@ -651,22 +665,24 @@ def masked_matmul_kernel(
     epilogue_mult: Optional[torch.Tensor] = None,   # (M, N) float32
 ) -> torch.Tensor:
     """K6, the 2-D predicated launch: the (M, N) product over the live
-    out_mask tiles with dead operand blocks skipped, ×``epilogue_mult``.
-    Shapes must be block-aligned."""
+    out_mask tiles with dead operand blocks skipped, ×``epilogue_mult``,
+    accumulated in f32 and cast to ``out_dtype``.  Shapes must be
+    block-aligned."""
     global masked_2d_launches
-    _check_2d(a, b, (bm, bk, bn), out_dtype)
+    _check_2d(a, b, (bm, bk, bn))
     _validate(*_lift(a, b, out_mask, a_mask, b_mask), (bm, bk, bn),
               *_lift(epilogue_mult))
     if a.device.type == "cpu":
         return masked_matmul_plain(a, b, out_mask, a_mask, b_mask, bm=bm,
-                                   bk=bk, bn=bn, epilogue_mult=epilogue_mult)
+                                   bk=bk, bn=bn, epilogue_mult=epilogue_mult
+                                   ).to(out_dtype)
     out = torch.zeros((1, a.shape[0], b.shape[1]), dtype=torch.float32,
                       device=a.device)
-    _launch(_PREDICATED, *_lift(a, b), out, None,
+    _launch(_PREDICATED, *_lift(_widen(a), _widen(b)), out, None,
             *_lift(out_mask, a_mask, b_mask, epilogue_mult), None, None,
             None, 0, (bm, bk, bn), None)
     masked_2d_launches += 1
-    return out[0]
+    return out[0].to(out_dtype)
 
 
 def compact_masked_matmul_plain(a, b, ii, jj, n_active, a_mask, b_mask, *,
@@ -699,20 +715,21 @@ def compact_masked_matmul_kernel(
 ) -> torch.Tensor:
     """K7, the 2-D compact launch: the COMPACTED (S, bm, bn) output, slot s
     holding tile (ii[s], jj[s]) for s < n_active and zeros after; the caller
-    scatters it to (M, N).  Shapes must be block-aligned."""
+    scatters it to (M, N).  Accumulated in f32 and cast to ``out_dtype``;
+    shapes must be block-aligned."""
     global compact_2d_launches
-    _check_2d(a, b, (bm, bk, bn), out_dtype)
+    _check_2d(a, b, (bm, bk, bn))
     _validate(*_lift(a, b), None, *_lift(a_mask, b_mask), (bm, bk, bn),
               *_lift(epilogue_mult))
     _check_queue(ii, jj, n_active, a.device)
     if a.device.type == "cpu":
         return compact_masked_matmul_plain(
             a, b, ii, jj, n_active, a_mask, b_mask, bm=bm, bk=bk, bn=bn,
-            epilogue_mult=epilogue_mult)
+            epilogue_mult=epilogue_mult).to(out_dtype)
     out = torch.zeros((ii.numel(), bm, bn), dtype=torch.float32,
                       device=a.device)
-    _launch(_COMPACT_OUT, *_lift(a, b), out, None, None,
+    _launch(_COMPACT_OUT, *_lift(_widen(a), _widen(b)), out, None, None,
             *_lift(a_mask, b_mask, epilogue_mult), ii, jj, n_active,
             ii.numel(), (bm, bk, bn), None)
     compact_2d_launches += 1
-    return out
+    return out.to(out_dtype)

@@ -19,10 +19,14 @@ the device (both launches read ``n_live``; one of them exits) instead of by
 ``lax.cond``, and ``fallback:queue_overflow`` is added on the device into a
 counter of ``stats`` that is folded in when the counts are read (no host
 sync per GEMM).  The ``dense`` schedule is plain torch, as it is XLA (not
-Pallas) in the reference.
+Pallas) in the reference.  Operands may be float32 or bfloat16; every
+schedule accumulates in float32 and casts to ``spec.out_dtype`` at the end.
 
 Every dispatch is counted under ``gemm:<schedule>:<g>`` (plus ``emit:grad``
-per emitted bitmap).
+per emitted bitmap) and offers its live-tile fractions to the autotuner
+(``_observe_live_tiles``).  The fault-injection tamper hook
+(``set_tamper_hook``) sees the spec (``gemm:spec``) and the emitted bits
+(``gemm:emit_bits``) of every dispatch.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from . import masked_matmul, ref, stats
+from . import autotune, masked_matmul, ref, stats
 from . import bitmap_scan as _bitmap_scan
 from . import relu_encode as _relu_encode
 from .queue_builder import build_queue
@@ -172,6 +176,26 @@ def _as_masks(masks: MasksLike) -> GemmMasks:
 # The dispatcher
 # ---------------------------------------------------------------------------
 
+# Fault-injection tap (``runtime/faults.py``): when a hook is installed,
+# every dispatch offers named values for tampering — the spec
+# (``gemm:spec``, e.g. a shrunk queue capacity) and the emitted bitmap
+# (``gemm:emit_bits``) — without the kernels layer importing the runtime
+# layer.  None (the default) is a passthrough.
+_TAMPER_HOOK = None
+
+
+def set_tamper_hook(fn):
+    """Install (or, with None, remove) the fault-injection tamper hook;
+    returns the previous hook so callers can restore it."""
+    global _TAMPER_HOOK
+    prev, _TAMPER_HOOK = _TAMPER_HOOK, fn
+    return prev
+
+
+def _tamper(site: str, value):
+    return value if _TAMPER_HOOK is None else _TAMPER_HOOK(site, value)
+
+
 def sparse_gemm(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -190,6 +214,7 @@ def sparse_gemm(
     With ``bitmap_emit`` it returns ``(out, bitmap)``, the (⌈M/er⌉, ⌈N/ec⌉)
     int32 any-nonzero bitmap of the returned values."""
     spec = GemmSpec() if spec is None else spec
+    spec = _tamper("gemm:spec", spec)
     masks = _as_masks(masks)
     if (epilogue_mult is not None) != spec.fuses_mult:
         raise ValueError(
@@ -212,11 +237,55 @@ def sparse_gemm(
     stats.record(spec.stats_key)
     if spec.emits_bitmap:
         stats.record("emit:grad")
+    _observe_live_tiles(spec, a3, b3, masks)
     with stats.lifecycle_scope("gemm", f"{spec.schedule}:{spec.groups}"):
         out, bits = _dispatch(a3, b3, masks, spec, mult3)
+    if spec.out_dtype != out.dtype:
+        out = out.to(spec.out_dtype)
     if spec.emits_bitmap:
+        bits = _tamper("gemm:emit_bits", bits)
         return (out[0], bits[0]) if not grouped_in else (out, bits)
     return out[0] if not grouped_in else out
+
+
+def _observe_live_tiles(spec: GemmSpec, a3, b3, masks: GemmMasks) -> None:
+    """Measured live-tile telemetry for the autotuner: the fraction of live
+    OUTPUT tiles (1.0 without an out mask) and the min live fraction across
+    the operand masks, over the unpadded block bitmaps, as in the
+    reference.  On the CPU the fractions are recorded at once.  On the card
+    the live counts stay device scalars, queued with the key that resolved
+    the spec until ``autotune.fold_pending`` (no host sync per GEMM); a
+    spec that no autotune resolution or quarantine clamp produced is not
+    observed there, so a step without the autotuner does no extra work."""
+    present = [m for m in masks if m is not None]
+    if not present:
+        return
+    dims = (a3.shape[1], a3.shape[2], b3.shape[2])
+    if present[0].device.type != "cpu":
+        _defer_live_tiles(spec, dims, masks)
+    else:
+        def frac(m) -> float:
+            return int(torch.count_nonzero(m)) / m.numel() if m.numel() \
+                else 1.0
+        out_frac = frac(masks.out) if masks.out is not None else 1.0
+        operand = [frac(m) for m in (masks.a, masks.b) if m is not None]
+        autotune.observe_dispatch(spec, dims, out_frac,
+                                  min(operand) if operand else 1.0)
+
+
+def _defer_live_tiles(spec: GemmSpec, dims, masks: GemmMasks) -> None:
+    """The card's path of ``_observe_live_tiles``: the masks' live counts
+    as device scalars, queued for ``autotune.fold_pending``."""
+    key = autotune.tracked_key(spec, dims)
+    if key is None:
+        return
+
+    def count(m):
+        return torch.count_nonzero(m), m.numel()
+
+    autotune.defer_observation(
+        key, count(masks.out) if masks.out is not None else None,
+        [count(m) for m in (masks.a, masks.b) if m is not None])
 
 
 def _dispatch(a, b, masks: GemmMasks, spec: GemmSpec, mult):
@@ -227,8 +296,6 @@ def _dispatch(a, b, masks: GemmMasks, spec: GemmSpec, mult):
     if g != g2 or g != spec.groups or k != k2:
         raise ValueError(f"bad operands {tuple(a.shape)} @ {tuple(b.shape)} "
                          f"for {spec}")
-    if spec.out_dtype != torch.float32:
-        raise NotImplementedError(f"out_dtype {spec.out_dtype}: only float32")
     bm, bk, bn = spec.block
     emit = spec.emit_gran if spec.emits_bitmap else None
     if mult is not None:
@@ -240,7 +307,7 @@ def _dispatch(a, b, masks: GemmMasks, spec: GemmSpec, mult):
     if spec.schedule == "dense":
         # Dense compute + output masking, numerically the kernels' result;
         # operand masks are metadata only on this schedule.
-        out = ref.grouped_masked_matmul(a, b, masks.out, None, None, bm=bm,
+        out = ref.grouped_masked_matmul(a.float(), b.float(), masks.out, None, None, bm=bm,
                                         bk=bk, bn=bn, epilogue_mult=mult)
         bits = None if emit is None else masked_matmul.emit_bits(out, emit)
         return out, bits
@@ -277,8 +344,11 @@ def _dispatch(a, b, masks: GemmMasks, spec: GemmSpec, mult):
         if n_live.device.type == "cpu":
             if int(n_live[0]) > cap:
                 stats.record("fallback:queue_overflow")
+                autotune.report_overflow(spec, (m, k, n))
         else:
-            stats.record_on_device("fallback:queue_overflow", n_live > cap)
+            overflow = n_live > cap
+            stats.record_on_device("fallback:queue_overflow", overflow)
+            autotune.defer_overflow(spec, (m, k, n), overflow)
         out, bits = masked_matmul.grouped_masked_matmul_kernel(
             a, b, om, am, bmask, block=spec.block, epilogue_mult=mult,
             emit_gran=emit, out=out, bits=bits, n_live=n_live, capacity=cap)

@@ -124,14 +124,17 @@ def relu_encode_plain(z: torch.Tensor, gran: Tuple[int, int]
 
 def relu_encode(z: torch.Tensor, gran: Tuple[int, int]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(relu(z), bitmap) for a 2-D float32 ``z`` at bitmap granularity
-    ``gran``.  Launches K1 for a CUDA tensor; runs the plain version for a
-    CPU tensor."""
+    """(relu(z), bitmap) for a 2-D float32 or bfloat16 ``z`` at bitmap
+    granularity ``gran``; relu(z) keeps ``z``'s dtype.  Launches K1 for a
+    CUDA tensor (a bf16 ``z`` is widened to f32 for it, which changes no
+    sign and no NaN, and relu(z) narrowed back exactly); runs the plain
+    version for a CPU tensor."""
     global launches
     if z.dim() != 2:
         raise ValueError(f"relu_encode wants a 2-D tensor, got {tuple(z.shape)}")
-    if z.dtype != torch.float32:
-        raise NotImplementedError(f"relu_encode: only float32, got {z.dtype}")
+    if z.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"relu_encode: float32 or bfloat16 only, got {z.dtype}")
     gr, gc = gran
     if gr < 1 or gc < 1:
         raise ValueError(f"bad granularity {gran}")
@@ -143,9 +146,10 @@ def relu_encode(z: torch.Tensor, gran: Tuple[int, int]
         raise ValueError("relu_encode: z must be contiguous")
     m, n = z.shape
     lib = _build.load()
-    y = torch.empty_like(z)
+    zf = z.to(torch.float32)
+    y = torch.empty_like(zf)
     bits = torch.empty((-(-m // gr), -(-n // gc)), dtype=torch.int32,
                        device=z.device)
-    launch_encoder(lib.relu_encode_launch, z, n, y, bits, gran)
+    launch_encoder(lib.relu_encode_launch, zf, n, y, bits, gran)
     launches += 1
-    return y, bits
+    return y.to(z.dtype), bits

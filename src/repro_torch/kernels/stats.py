@@ -22,9 +22,14 @@ events.  The lifecycle scopes become ``torch.profiler.record_function``
 ranges under the reference's ``repro:<kind>[:<detail>]:<seq>`` and
 ``layer:<name>`` names, so a profiler trace carries the same tags.
 
-An event decided on the device (a queue overflow on the card) is added
-into a device-resident counter with no host sync (``record_on_device``) and
-folded into the counts when they are read: that read is the one sync.
+An event decided on the device (a queue overflow on the card, the
+optimizer's non-finite skip) is added into a device-resident counter with
+no host sync (``record_on_device``, ``record_at_runtime``) and folded into
+the counts when they are read: that read is the one sync.
+
+The live-tile ring buffers (``record_live_tiles``) are the measured signal
+the autotuner (``kernels/autotune.py``) tunes on, one bounded deque per
+autotune key, as in the reference.
 
 Kernel launch counts are not stats keys: each kernel wrapper keeps its own
 plain integer (``launches``).
@@ -77,6 +82,7 @@ def _fold() -> None:
 def reset() -> None:
     _COUNTS.clear()
     _PENDING.clear()
+    _LIVE.clear()
 
 
 def counts() -> Dict[str, int]:
@@ -113,6 +119,83 @@ def gemm_launches(schedule: str = "", groups: Optional[int] = None) -> int:
             continue
         n += v
     return n
+
+
+def guard_counts() -> Dict[str, int]:
+    """The ``guard:*`` family — the runtime guard layer's detection and
+    verdict counters."""
+    return {k: v for k, v in counts().items() if k.startswith("guard:")}
+
+
+# Runtime counters stay on the device until the counts are read; this
+# switch lets a timing harness leave them out.  Default ON.
+_RUNTIME_COUNTING = True
+
+
+def set_runtime_counting(on: bool) -> bool:
+    """Enable/disable ``record_at_runtime``; returns the previous setting
+    (restore it in a finally)."""
+    global _RUNTIME_COUNTING
+    prev, _RUNTIME_COUNTING = _RUNTIME_COUNTING, bool(on)
+    return prev
+
+
+def record_at_runtime(kind: str, flag: torch.Tensor) -> None:
+    """Count ``kind`` once when the runtime value of the scalar ``flag`` is
+    nonzero — for events that exist only at run time, like the optimizer's
+    non-finite skip.  It rides on ``record_on_device``: the flag is added
+    into a device-resident counter with no host sync and folded in when the
+    counts are read.  A no-op while ``set_runtime_counting(False)`` is in
+    effect."""
+    if _RUNTIME_COUNTING:
+        record_on_device(kind, flag.detach().reshape(()) != 0)
+
+
+@contextlib.contextmanager
+def counting():
+    """Scoped counter: resets on entry, yields the live ``counts`` getter."""
+    reset()
+    yield counts
+
+
+# ---------------------------------------------------------------------------
+# Live-tile telemetry — the measured signal the autotuner tunes on
+# ---------------------------------------------------------------------------
+
+LIVE_WINDOW = 128
+
+_LIVE: Dict[str, "collections.deque[Tuple[float, float]]"] = {}
+
+
+def record_live_tiles(key: str, out_frac: float,
+                      operand_frac: float = 1.0) -> None:
+    """Append one measured (out, operand) live-tile fraction pair for
+    ``key`` (bounded: the newest ``LIVE_WINDOW`` samples are kept)."""
+    buf = _LIVE.get(key)
+    if buf is None:
+        buf = _LIVE[key] = collections.deque(maxlen=LIVE_WINDOW)
+    buf.append((float(out_frac), float(operand_frac)))
+
+
+def live_tile_stats(key: str, window: Optional[int] = None
+                    ) -> Tuple[Optional[float], Optional[float], int]:
+    """(mean out-live fraction, mean operand-live fraction, n) over the
+    trailing ``window`` samples for ``key`` — (None, None, 0) if nothing
+    has been observed."""
+    buf = _LIVE.get(key)
+    if not buf:
+        return None, None, 0
+    items = list(buf)
+    if window is not None:
+        items = items[-window:]
+    outs = sum(o for o, _ in items) / len(items)
+    opnds = sum(p for _, p in items) / len(items)
+    return outs, opnds, len(items)
+
+
+def live_tile_keys() -> list:
+    """Keys that have at least one recorded live-tile sample."""
+    return [k for k, v in _LIVE.items() if v]
 
 
 # ---------------------------------------------------------------------------

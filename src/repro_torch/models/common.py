@@ -8,12 +8,34 @@ carry the reference's weights across instead.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
+
+# The dtype norms, RoPE, attention scores and the LM loss compute in:
+# float32, as in the reference.  ``upcast(torch.float64)`` lifts them for a
+# float64 check of a whole step.
+_UPCAST = torch.float32
+
+
+@contextlib.contextmanager
+def upcast(dtype: torch.dtype):
+    """Compute the upcast parts of the models in ``dtype`` inside the
+    block (float32 outside it)."""
+    global _UPCAST
+    prev, _UPCAST = _UPCAST, dtype
+    try:
+        yield
+    finally:
+        _UPCAST = prev
+
+
+def upcast_dtype() -> torch.dtype:
+    return _UPCAST
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -49,10 +71,10 @@ def rmsnorm_init(d: int, dtype=torch.float32) -> Params:
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     dt = x.dtype
-    x32 = x.to(torch.float32)
+    x32 = x.to(_UPCAST)
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].to(torch.float32)).to(dt)
+    return (y * params["scale"].to(_UPCAST)).to(dt)
 
 
 def layernorm_init(d: int, dtype=torch.float32) -> Params:
@@ -84,10 +106,10 @@ def make_norm(kind: str):
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,
-               device="cpu") -> torch.Tensor:
+               device="cpu", dtype=torch.float32) -> torch.Tensor:
     if head_dim % 2:
         raise ValueError(f"head_dim must be even, got {head_dim}")
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+    exps = torch.arange(0, head_dim, 2, dtype=dtype,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)
 
@@ -96,11 +118,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., T, H, Dh); positions: broadcastable to (..., T)."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, device=x.device)           # (Dh/2,)
-    ang = positions[..., None].to(torch.float32) * freqs     # (..., T, Dh/2)
+    freqs = rope_freqs(dh, theta, device=x.device, dtype=_UPCAST)
+    ang = positions[..., None].to(_UPCAST) * freqs           # (..., T, Dh/2)
     cos = torch.cos(ang)[..., None, :]                       # (..., T, 1, ·)
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(_UPCAST), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 

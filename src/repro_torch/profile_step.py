@@ -4,6 +4,13 @@ Run on a machine with a CUDA device:
   PYTHONPATH=src python -m repro_torch.profile_step [--net vgg16]
       [--policy IN_OUT_WR] [--scan-signed-inputs] [--image-size 224]
       [--width 1.0] [--batch 8] [--trace out.json]
+  PYTHONPATH=src python -m repro_torch.profile_step --arch smollm-360m
+      [--batch 8] [--seq 128]
+
+``--arch`` profiles the LM trainer's step instead (``launch/steps``: loss,
+gradients and AdamW, f32, random weights), its device time keyed
+``forward`` and ``adamw`` by the step's ranges and the backward pass,
+launched from autograd's threads, as ``(no layer)``.
 
 Runs two warm-up steps, then one step under ``torch.profiler`` (CPU and
 CUDA activities), and prints: the step's wall time, the summed device time
@@ -133,8 +140,55 @@ def profile_step(*, net="vgg16", policy="IN_OUT_WR",
     return res
 
 
+def profile_lm_step(*, arch="smollm-360m", batch=8, seq=128,
+                    device="cuda", trace=None):
+    """Profile one LM train step (``launch/steps.make_train_step``, AdamW)
+    after two warm-up steps; returns a summary dict as ``profile_step``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizer
+
+    dev = resolve_device(device)
+    set_full_precision()
+    cfg = ARCHS[arch]
+    ocfg = optimizer.OptConfig()
+    params = transformer.lm_init(0, cfg, dtype=torch.float32, device=dev)
+    opt = optimizer.adamw_init(params)
+    step_fn = steps.make_train_step(cfg, ocfg)
+
+    for i in range(2):
+        params, opt, _ = step_fn(params, opt, lm_batch(
+            0, i, batch=batch, seq_len=seq, vocab=cfg.vocab_size,
+            device=dev))
+    b = lm_batch(0, 2, batch=batch, seq_len=seq, vocab=cfg.vocab_size,
+                 device=dev)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt, b)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            res = summarize_trace(json.load(f)["traceEvents"])
+    res["wall_ms"] = wall_ms
+    res["idle_share"] = max(0.0, 1.0 - res["busy_ms"] / wall_ms)
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None,
+                    help="profile the LM trainer's step of this config "
+                         "(repro_torch.configs.ARCHS) instead of a CNN's")
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--net", default="vgg16", choices=list(NETWORKS))
     ap.add_argument("--policy", default="IN_OUT_WR", choices=list(SCENARIOS))
     ap.add_argument("--scan-signed-inputs", action="store_true")
@@ -144,11 +198,15 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
-    res = profile_step(net=args.net, policy=args.policy,
-                       scan_signed_inputs=args.scan_signed_inputs,
-                       image_size=args.image_size,
-                       width=args.width, num_classes=args.num_classes,
-                       batch=args.batch, trace=args.trace)
+    if args.arch:
+        res = profile_lm_step(arch=args.arch, batch=args.batch,
+                              seq=args.seq, trace=args.trace)
+    else:
+        res = profile_step(net=args.net, policy=args.policy,
+                           scan_signed_inputs=args.scan_signed_inputs,
+                           image_size=args.image_size,
+                           width=args.width, num_classes=args.num_classes,
+                           batch=args.batch, trace=args.trace)
     print(f"step wall {res['wall_ms']:.1f} ms under the profiler; device "
           f"busy {res['busy_ms']:.1f} ms; idle share "
           f"{res['idle_share']:.3f}")

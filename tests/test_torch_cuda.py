@@ -740,3 +740,76 @@ def test_other_networks_step_on_card_matches_cpu(dev, net):
     assert launches["queue_builder"] == c["queue:prefix_sum"]
     assert launches["compact_gemm"] == c["gemm:compact:1"] == sum(
         v for k, v in c.items() if k.startswith("gemm:"))
+
+
+# ---------------------------------------------------------------------------
+# bf16 operands and out_dtype; a GEMM on a halved (64-edge) block
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("schedule", ["predicated", "compact"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_bf16_gemm_kernels_match_plain(dev, schedule, out_dtype):
+    """bf16 operands widened to f32 on the card: the kernel's result equals
+    the plain version's (f32 on the same bf16 values) within the kernels'
+    1e-4, the emitted bits exactly; out_dtype is the cast."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g, m, k, n, block = 2, 200, 150, 90, (64, 32, 64)
+    a = torch.randn(g, m, k, device=dev, generator=gen).to(torch.bfloat16)
+    b = torch.randn(g, k, n, device=dev, generator=gen).to(torch.bfloat16)
+    ni, nk, nj = shapes.grid_shape((m, k, n), block)
+    om = (torch.rand(g, ni, nj, device=dev, generator=gen) < 0.6).int()
+    am = (torch.rand(g, ni, nk, device=dev, generator=gen) < 0.7).int()
+    spec = ops.GemmSpec(block=block, groups=g, schedule=schedule,
+                        epilogue=("bitmap_emit",), emit_gran=(8, 16),
+                        out_dtype=out_dtype)
+    out, bits = ops.sparse_gemm(a, b, (om, am, None), spec)
+    pout, pbits = ops.sparse_gemm(a.cpu(), b.cpu(),
+                                  (om.cpu(), am.cpu(), None), spec)
+    assert out.dtype == out_dtype and torch.equal(bits.cpu(), pbits)
+    err = float((out.float().cpu() - pout.float()).abs().max())
+    assert err <= 1e-4 * float(pout.float().abs().max()) + \
+        (0.0 if out_dtype == torch.float32 else 1e-2)
+    launched = kernels.launch_counts()
+    assert launched["compact_gemm" if schedule == "compact"
+                    else "predicated_gemm"] == 1
+
+
+def test_bf16_encoders_match_plain(dev):
+    z = torch.randn(333, 64, device=dev).to(torch.bfloat16)
+    z[5, :] = float("nan")
+    y, bits = k1.relu_encode(z, (1, 64))
+    yp, bp = k1.relu_encode_plain(z.cpu(), (1, 64))
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y.cpu().nan_to_num(), yp.nan_to_num())
+    assert torch.equal(bits.cpu(), bp)
+    s = k5.bitmap_scan(z, (8, 16))
+    assert torch.equal(s.cpu(), k5.bitmap_scan_plain(z.cpu(), (8, 16)))
+    assert (k1.launches, k5.launches) == (1, 1)
+
+
+def test_halved_block_gemm_matches_plain(dev):
+    """The autotuner's refined block halves a 128 edge to 64: the standard
+    path at a 64×64×64 mask block, against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m, k, n, block = 300, 256, 200, (64, 64, 64)
+    a = torch.randn(1, m, k, device=dev, generator=gen)
+    b = torch.randn(1, k, n, device=dev, generator=gen)
+    ni, nk, nj = shapes.grid_shape((m, k, n), block)
+    om = (torch.rand(1, ni, nj, device=dev, generator=gen) < 0.5).int()
+    mult = (torch.rand(1, m, n, device=dev, generator=gen) < 0.5).float()
+    spec = ops.GemmSpec(block=block, schedule="compact",
+                        epilogue=("sigma_prime", "bitmap_emit"),
+                        emit_gran=(1, 64))
+    out, bits = ops.sparse_gemm(a, b, (om, None, None), spec,
+                                epilogue_mult=mult)
+    pout, pbits = ops.sparse_gemm(a.cpu(), b.cpu(), (om.cpu(), None, None),
+                                  spec, epilogue_mult=mult.cpu())
+    assert float((out.cpu() - pout).abs().max()) <= \
+        1e-4 * float(pout.abs().max())
+    assert torch.equal(bits.cpu(), pbits)
+
+
+def test_chaos_matrix_on_card(dev):
+    from repro_torch.runtime import faults
+    rows = faults.run_matrix(device="cuda")
+    assert [r.ok for r in rows] == [True] * 7, [r.detail for r in rows]

@@ -358,11 +358,17 @@ def test_gemm_spec_validation_matches_reference():
 
 
 def test_wrappers_reject_bf16_and_bad_shapes():
-    a = torch.zeros((8, 8), dtype=torch.bfloat16)
+    # bf16 is taken as the reference takes it (tests/test_torch_bf16.py);
+    # other dtypes are still refused
+    a = torch.zeros((8, 8), dtype=torch.float16)
     with pytest.raises(NotImplementedError):
         tops.relu_encode(a, block=(1, 8))
     with pytest.raises(NotImplementedError):
         tops.sparse_gemm(a, a, None, tops.GemmSpec(block=(8, 8, 8)))
+    h = torch.ones((8, 8), dtype=torch.bfloat16)
+    assert tops.relu_encode(h, block=(1, 8))[0].dtype == torch.bfloat16
+    assert tops.sparse_gemm(h, h, None, tops.GemmSpec(block=(8, 8, 8))) \
+        .dtype == torch.float32
     x = torch.zeros((8, 8))
     with pytest.raises(ValueError):
         tops.sparse_gemm(x, x, tops.GemmMasks(out=torch.ones(3, 3)),

@@ -189,8 +189,14 @@ def test_2d_kernels_reject_unaligned_and_non_f32():
     with pytest.raises(ValueError):
         tmm.masked_matmul_kernel(a[:30], b, om, am, bmk, bm=8, bk=16, bn=8)
     with pytest.raises(NotImplementedError):
-        tmm.masked_matmul_kernel(a, b, om, am, bmk, bm=8, bk=16, bn=8,
-                                 out_dtype=torch.bfloat16)
+        tmm.masked_matmul_kernel(a.half(), b, om, am, bmk, bm=8, bk=16,
+                                 bn=8)
+    # out_dtype is honoured as in the reference: f32 accumulation, cast
+    got = tmm.masked_matmul_kernel(a, b, om, am, bmk, bm=8, bk=16, bn=8,
+                                   out_dtype=torch.bfloat16)
+    want = tmm.masked_matmul_kernel(a, b, om, am, bmk, bm=8, bk=16, bn=8)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
     ii = torch.zeros(3, dtype=torch.int32)
     n = torch.ones(1, dtype=torch.int32)
     with pytest.raises(ValueError):

@@ -141,8 +141,10 @@ def test_relu_conv_chain_hands_dy_bitmap_through_registry():
 
 
 def test_policy_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        tpol.IN_OUT_WR.with_(autotune=True)
+    # autotune is ported: the policy takes it (tests/test_torch_autotune.py)
+    assert tpol.IN_OUT_WR.with_(autotune=True).autotune
+    with pytest.raises(ValueError):
+        tpol.IN_OUT_WR.with_(kernel_impl="bogus")
     # the signed-input scan is ported: the policy takes it as the reference
     # does, with the reference's defaults for the grouped-engine fields
     p = tpol.IN_OUT_WR.with_(scan_signed_inputs=True)
