@@ -60,11 +60,27 @@ Phases (any failure makes the exit code nonzero):
      versions on the CPU; then every table of ``benchmarks.run`` from the
      captures, with the modeled total cycles in the order DC >= IN >=
      IN_OUT >= IN_OUT_WR for each network.  Each of its paths resets the
-     launch counters before and reads them after.
+     launch counters before and reads them after;
+  7. guarded LM training: SmolLM-360M at full width under a StepGuard with
+     a checkpoint and a resume, its first step against float64 with two
+     planted faults, the chaos matrix, VGG16 with ``autotune=True``;
+  8. the encoder-decoder, frontend and MoE LMs at full width, batch 8 x 512
+     positions: seamless-m4t-medium (full depth, its ReLU FFN under
+     IN_OUT_WR on the masked plain path as the reference runs it) with its
+     first step against float64 under its own ReLU masks, against the dense
+     step and two planted faults, five AdamW steps, a checkpoint and a
+     bit-equal resume; its decoder layer 0's FFN on that step's input
+     through K1, K2 and K3 against the plain path, each kernel call held
+     against its plain version; internvl2-1b (full depth) with the float64
+     rule, one planted fault and three steps; deepseek-v2-lite at 3 layers
+     with the float64 rule under its own routing, two planted faults, the
+     tokens dropped per MoE layer, and guarded train_loop runs with a
+     bit-equal resume.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, it exits nonzero and prints no result.
 """
+import contextlib
 import json
 import math
 import os
@@ -831,26 +847,23 @@ def bf16_cases(dev, report, detail, time_ms, gemm_case):
                {"widen_ms": widen_ms}, flop_rate=BF16_FLOP_PER_S)
 
 
-def audit_step(dev, net, report, detail, policy=None, state=None, **geom):
-    """One IN_OUT_WR step of ``net`` (phase 6's weights and batch, or
-    ``state`` = (model, params, img, labels)) under ``policy`` (default
-    ``IN_OUT_WR`` on the kernels) with every K1 encode, K2 queue and GEMM
-    dispatch in it held against its plain version on the same inputs as it
-    returns (see kernel_phase); ``report`` prints a kernel line, ``detail``
-    an encoder's plan.  Returns the dispatches held per (schedule, block)."""
+@contextlib.contextmanager
+def held_against_plain(dev, tag, report, detail):
+    """Inside the block every GEMM dispatch, K2 queue and K1 encode is held
+    against its plain version on the same inputs as it returns; the first
+    call of each shape is timed and reported (``report`` prints a kernel
+    line, ``detail`` an encoder's plan), labelled ``tag``.  Yields (held:
+    the calls held per kind, schedules: dispatches per (schedule, block),
+    live: (case, live share of the output tiles, of A's blocks, of B's
+    blocks, share of the dense FLOPs) per timed GEMM)."""
     import torch
-    from repro_torch.core.policy import IN_OUT_WR
     from repro_torch.kernel_times import event_ms as time_ms
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels import ops, shapes, stats
     from repro_torch.kernels import queue_builder as qb
     from repro_torch.kernels import relu_encode as re_
-    from repro_torch.models.cnn import param_leaves
 
-    model, params, img, labels = state or new_net(dev, net, **geom)
-    params = clone_params(params)
-    policy = policy or IN_OUT_WR.with_(kernel_impl="pallas")
-    schedules = {}
+    schedules, live = {}, []
     real_dispatch, real_queue = ops._dispatch, ops.build_queue
     real_encode = re_.relu_encode
     seen, held, timing = set(), {"gemm": 0, "queue": 0, "encode": 0}, []
@@ -901,7 +914,7 @@ def audit_step(dev, net, report, detail, policy=None, state=None, **geom):
         plan = {"path": mm.gemm_path(g, m, k, n, spec.block),
                 "splits": mm.split_plan(g, m, k, n, spec.block),
                 "block": spec.block, "emit_gran": emit}
-        case = (f"{net} {layer} {role} {g}x{m}x{k}x{n}"
+        case = (f"{tag} {layer} {role} {g}x{m}x{k}x{n}"
                 + (" sigma-prime" if mult is not None else "")
                 + ("" if emit is None else f" emit {emit}"))
         if not once(("gemm", g, m, k, n, spec.block, spec.schedule, emit,
@@ -915,6 +928,10 @@ def audit_step(dev, net, report, detail, policy=None, state=None, **geom):
                    for x, s in ((masks.a, (ni, nk)), (masks.b, (nk, nj))))
         flops, bytes_ = gemm_traffic((g, m, k, n), spec.block, om, am,
                                      bmk, mult, bits)
+        live.append((case, float(om.float().mean()),
+                     None if am is None else float(am.float().mean()),
+                     None if bmk is None else float(bmk.float().mean()),
+                     flops / (2.0 * g * m * k * n)))
         timing.append(True)
         try:
             report(kname, case + f" ({spec.schedule} dispatch, block "
@@ -936,7 +953,7 @@ def audit_step(dev, net, report, detail, policy=None, state=None, **geom):
         want = qb.build_queue_plain(bitmap, capacity)
         ok = all(torch.equal(x, y) for x, y in zip(got, want))
         held["queue"] += 1
-        case = f"{net} {stats.current_layer()} {bitmap.shape[0]}x" \
+        case = f"{tag} {stats.current_layer()} {bitmap.shape[0]}x" \
             f"{bitmap.shape[1]} cap {capacity}"
         if not once(("queue", tuple(bitmap.shape), capacity)):
             check(ok, f"queue_builder {case} matches its plain version")
@@ -954,7 +971,7 @@ def audit_step(dev, net, report, detail, policy=None, state=None, **geom):
         yp, bp = re_.relu_encode_plain(z, gran)
         ok = torch.equal(y, yp) and torch.equal(bits, bp)
         held["encode"] += 1
-        report("relu_encode", f"{net} {stats.current_layer()} input "
+        report("relu_encode", f"{tag} {stats.current_layer()} input "
                f"{z.shape[0]}x{z.shape[1]} gran {gran}",
                float((y - yp).abs().max()), ok,
                time_ms(lambda: real_encode(z, gran)),
@@ -966,16 +983,35 @@ def audit_step(dev, net, report, detail, policy=None, state=None, **geom):
                                    lambda: torch.relu(z)))
         return y, bits
 
-    leaves = param_leaves(params)
-    stats.reset()
     ops._dispatch, ops.build_queue, re_.relu_encode = \
         dispatch, queue, encode
     try:
-        loss = model.loss(params, img, labels, policy)
-        torch.autograd.grad(loss, list(leaves.values()))
+        yield held, schedules, live
     finally:
         ops._dispatch, ops.build_queue, re_.relu_encode = \
             real_dispatch, real_queue, real_encode
+
+
+def audit_step(dev, net, report, detail, policy=None, state=None, **geom):
+    """One IN_OUT_WR step of ``net`` (phase 6's weights and batch, or
+    ``state`` = (model, params, img, labels)) under ``policy`` (default
+    ``IN_OUT_WR`` on the kernels) with every K1 encode, K2 queue and GEMM
+    dispatch in it held against its plain version (``held_against_plain``).
+    Returns the dispatches held per (schedule, block)."""
+    import torch
+    from repro_torch.core.policy import IN_OUT_WR
+    from repro_torch.kernels import stats
+    from repro_torch.models.cnn import param_leaves
+
+    model, params, img, labels = state or new_net(dev, net, **geom)
+    params = clone_params(params)
+    policy = policy or IN_OUT_WR.with_(kernel_impl="pallas")
+    leaves = param_leaves(params)
+    stats.reset()
+    with held_against_plain(dev, net, report, detail) as (held, schedules,
+                                                           _):
+        loss = model.loss(params, img, labels, policy)
+        torch.autograd.grad(loss, list(leaves.values()))
     c = stats.counts()
     stats.reset()
     print(f"{net} step audit: {held}; the step's counts {c}", flush=True)
@@ -1824,7 +1860,9 @@ def lm_phase(dev):
     torch.cuda.empty_cache()
     size_gb = sum(os.path.getsize(os.path.join(r, f))
                   for r, _, fs in os.walk(ckdir) for f in fs) / 1e9
-    c, guard_c, ts_c, _ = run(LM_STEPS, ckdir)
+    saves = []
+    with final_save_counted(saves):
+        c, guard_c, ts_c, _ = run(LM_STEPS, ckdir)
     launches = kernels.launch_counts()
     # restore alone: the checkpoint into the resumed run's tree
     tmpl = {"params": c["params"], "opt": c["opt_state"]}
@@ -1848,7 +1886,9 @@ def lm_phase(dev):
     print(f"{LM_ARCH}: checkpoint of step {LM_CUT} {size_gb:.2f} GB, save "
           f"{save_s:.2f} s (the final save of run B), restore {restore_s:.2f}"
           f" s (step {step}); run C resumed from step {resumed}, losses "
-          f"{losses_c}", flush=True)
+          f"{losses_c}; its final save (step {saves}) counted, not written",
+          flush=True)
+    check(saves == [LM_STEPS], f"{LM_ARCH}: run C reached its final save")
     # run C's guard resumes run B's state, its verdict history included
     verdicts = [v for _, v in guard_a.verdicts + guard_b.verdicts] + \
         [v for s_, v in guard_c.verdicts if s_ >= LM_CUT]
@@ -1993,6 +2033,564 @@ def guarded_lm_phase(dev):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: encoder-decoder, frontend and mixture-of-experts LMs
+# ---------------------------------------------------------------------------
+
+# The batch the reference's registry.train_input_specs lays out at batch 8
+# and 512 positions (data.pipeline.train_batch): seamless and internvl2
+# take 256 frontend embeddings and 257 tokens, deepseek 513 tokens.
+FAM_BATCH, FAM_SEQ = 8, 512
+SEAMLESS, INTERNVL2, DEEPSEEK = ("seamless-m4t-medium", "internvl2-1b",
+                                 "deepseek-v2-lite-16b")
+# deepseek at full width cut to its dense prefix and two MoE layers: 1.67 B
+# params, ~27 GB with AdamW in f32.
+DEEPSEEK_LAYERS = 3
+SEAMLESS_STEPS, SEAMLESS_CUT = 5, 3
+INTERNVL2_STEPS = 3
+DEEPSEEK_STEPS, DEEPSEEK_CUT = 5, 3
+# Faults each new path's float64 rule must reject: the encoder's memory cut
+# to its first half; the middle encoder layer made causal;
+# the projected frontend embeddings put after the tokens; one expert's
+# output (DEEPSEEK_FAULT_EXPERT, first MoE layer) zeroed in the combine;
+# the MoE aux loss dropped.
+SEAMLESS_FAULTS = ("memory_halved", "encoder_layer_causal")
+INTERNVL2_FAULTS = ("frontend_after_tokens",)
+DEEPSEEK_FAULTS = ("expert_output_zeroed", "aux_loss_dropped")
+DEEPSEEK_FAULT_EXPERT = 0
+FFN_KERNELS = ("relu_encode", "queue_builder", "compact_gemm")
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """``module.name`` replaced by ``wrap(the real one)`` inside the
+    block."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def hooked(setter, fn):
+    """A module's test hook (``set_*_hook``) installed inside the block."""
+    prev = setter(fn)
+    try:
+        yield
+    finally:
+        setter(prev)
+
+
+@contextlib.contextmanager
+def final_save_counted(saves):
+    """``checkpoint.save`` recorded in ``saves`` (its step) instead of
+    written, for a resumed ``train_loop`` run: its final save writes the
+    whole state again (26.7 GB for deepseek at 3 layers), with the code
+    the interrupted run's final save already ran; the script keeps its
+    disk writes under 40 GB."""
+    from repro_torch import checkpoint as ckpt
+    with patched(ckpt, "save", lambda real: (
+            lambda path, step, tree, **kw: saves.append(step))):
+        yield
+
+
+def lm_grads(cfg, params, batch, dtype, *plants):
+    """(loss, gradient leaves) of ``lm_loss`` at ``params`` and ``batch``
+    cast to ``dtype``, every upcast at ``dtype`` (PR 17's float64 rule
+    takes the same step at float64), inside the context managers
+    ``plants`` (hooks, planted faults)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import common
+    from repro_torch.models.transformer import lm_loss
+
+    leaves = [x.detach().to(dtype).requires_grad_(True)
+              for x in tree.leaves(params)]
+    b = {k: v.to(dtype) if v.is_floating_point() else v
+         for k, v in batch.items()}
+    with contextlib.ExitStack() as stack:
+        for cm in plants:
+            stack.enter_context(cm)
+        stack.enter_context(common.upcast(dtype))
+        loss = lm_loss(tree.unflatten_like(params, leaves), b, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss), grads
+
+
+def f64_verdict(tag, what, paths, loss, grads, loss64, g64):
+    """PR 17's rule: the loss within LM_LOSS_RTOL relative and every
+    gradient leaf within LM_GRAD_RTOL in relative L2 norm of float64."""
+    loss_rel = abs(loss - loss64) / abs(loss64)
+    rels = [float((a.double() - b).norm() / b.norm().clamp_min(1e-300))
+            for a, b in zip(grads, g64)]
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    passed = loss_rel <= LM_LOSS_RTOL and rels[worst] <= LM_GRAD_RTOL
+    print(f"{tag} first step vs float64 [{what}]: loss {loss:.7f} vs "
+          f"{loss64:.7f} (rel {loss_rel:.2e}); worst gradient leaf "
+          f"{paths[worst]} rel L2 {rels[worst]:.2e}; "
+          f"{'passes' if passed else 'fails'} the rule", flush=True)
+    return passed
+
+
+def faults_fail(tag, faults, run, paths, loss64, g64):
+    """Each planted fault's first step (``run(fault)``) must fail the
+    float64 rule."""
+    for fault in faults:
+        loss, grads = run(fault)
+        check(not f64_verdict(tag, fault, paths, loss, grads, loss64, g64),
+              f"the float64 rule rejects {tag}'s planted {fault}")
+        del grads
+
+
+def timed_steps(dev, cfg, params, n, cut=None, ckdir=None):
+    """``n`` AdamW steps of ``make_train_step`` from ``params`` on
+    ``train_batch`` batches 0..n-1, each timed between device syncs, the
+    launch counters reset before and read after; with ``cut``, the state
+    after ``cut`` steps saved to ``ckdir``.  Returns (losses, step ms, save
+    s, launches, peak GiB, (params, opt state, step function))."""
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.optimizer import OptConfig, adamw_init
+
+    step_fn = make_train_step(cfg, OptConfig())
+    opt = adamw_init(params)
+    losses, ms, save_s = [], [], None
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(n):
+        batch = train_batch(cfg, 0, i, batch=FAM_BATCH, seq_len=FAM_SEQ,
+                            device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        if cut is not None and i + 1 == cut:
+            t0 = time.perf_counter()
+            ckpt.save(ckdir, cut, {"params": params, "opt": opt}, keep=1)
+            save_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return losses, ms, save_s, launches, peak, (params, opt, step_fn)
+
+
+def n_params(params):
+    from repro_torch import tree
+    return sum(x.numel() for x in tree.leaves(params))
+
+
+def report_steps(tag, cfg, n, losses, ms, peak):
+    """Print the steps' losses, times (the median of steps 2 on) and
+    memory peak."""
+    med = statistics.median(ms[1:])
+    print(f"{tag}: {n / 1e6:.1f} M params, {cfg.n_layers} decoder "
+          f"layers, batch {FAM_BATCH} x {FAM_SEQ} positions; losses "
+          f"{losses}; step ms {[round(x, 2) for x in ms]}; median of steps "
+          f"2-{len(ms)} {med:.1f} ms; peak memory {peak:.2f} GiB",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses), f"{tag}: finite losses")
+
+
+def seamless_phase(dev):
+    """seamless-m4t-medium at full width and depth with its ReLU FFN under
+    IN_OUT_WR (``sparse_ffn_scenario``: the masked plain path, as in the
+    reference): the first step against float64 under the f32 step's own
+    ReLU masks, against the dense step, and with two planted faults; five
+    AdamW steps with a checkpoint after three and a resume.  Returns (the
+    steps' launches, decoder layer 0's FFN input, weights and output
+    gradient in the first step)."""
+    import shutil
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import ffn, transformer
+    from repro_torch.models.transformer import lm_init
+
+    tag = SEAMLESS
+    cfg = ARCHS[SEAMLESS].with_(sparse_ffn_scenario="IN_OUT_WR")
+    dense = cfg.with_(sparse_ffn_scenario=None)
+    params = lm_init(0, cfg, dtype=torch.float32, device=dev)
+    batch = train_batch(cfg, 0, 0, batch=FAM_BATCH, seq_len=FAM_SEQ,
+                        device=dev)
+    paths = [p for p, _ in tree.leaves_with_paths(params)]
+    cap = {}
+
+    def capture(real):
+        calls = [0]
+
+        def ffn_apply(p, x, fc):
+            y = real(p, x, fc)
+            if calls[0] == cfg.n_enc_layers:          # decoder layer 0
+                cap["x"] = x.detach().reshape(-1, x.shape[-1]).clone()
+                cap["p"] = {k: v.detach() for k, v in p.items()}
+                y.register_hook(lambda g: cap.__setitem__(
+                    "dy", g.reshape(-1, g.shape[-1]).clone()))
+            calls[0] += 1
+            return y
+        return ffn_apply
+
+    def record(into):
+        return hooked(ffn.set_relu_mask_hook,
+                      lambda h: into.append(h > 0))
+
+    masks32, masks64 = [], []
+    loss32, g32 = lm_grads(cfg, params, batch, torch.float32,
+                           record(masks32),
+                           patched(transformer, "ffn_apply", capture))
+    loss64u, g64u = lm_grads(dense, params, batch, torch.float64,
+                             record(masks64))
+    flips = sum(int((a != b).sum()) for a, b in zip(masks32, masks64))
+    total = sum(a.numel() for a in masks32)
+    del masks64
+    replay = iter(masks32)
+    loss64, g64 = lm_grads(dense, params, batch, torch.float64,
+                           hooked(ffn.set_relu_mask_hook,
+                                  lambda h: next(replay)))
+    moved = sorted(((float((a - b).norm() / b.norm().clamp_min(1e-300)),
+                     paths[i]) for i, (a, b) in enumerate(zip(g64u, g64))),
+                   reverse=True)
+    n_moved = sum(r > 0 for r, _ in moved)
+    del g64u, masks32
+    print(f"{tag}: {flips} of {total} sigma-prime flips between the f32 and "
+          f"float64 forwards ({flips / total:.2e}); the float64 step under "
+          f"the f32 step's masks differs from the unmasked one in {n_moved} "
+          f"of {len(moved)} leaves (largest {moved[0][0]:.2e} at "
+          f"{moved[0][1]}; loss {loss64u:.9f} vs {loss64:.9f})", flush=True)
+    check(flips <= FLIP_SHARE * total,
+          f"{tag}: sigma-prime flips within {FLIP_SHARE} of the ReLU "
+          f"activations")
+    check(f64_verdict(tag, "IN_OUT_WR", paths, loss32, g32, loss64, g64),
+          f"{tag} IN_OUT_WR first step within {LM_LOSS_RTOL} (loss) and "
+          f"{LM_GRAD_RTOL} (every gradient leaf, relative L2) of float64 "
+          f"under its own ReLU masks")
+    loss_d, g_d = lm_grads(dense, params, batch, torch.float32)
+    same = sum(torch.equal(a, b) for a, b in zip(g32, g_d))
+    print(f"{tag}: dense f32 step loss {loss_d:.9f} vs IN_OUT_WR "
+          f"{loss32:.9f}; {same} of {len(g_d)} gradient leaves bit-equal",
+          flush=True)
+    check(f64_verdict(tag, "IN_OUT_WR against the dense f32 step", paths,
+                      loss32, g32, loss_d, [g.double() for g in g_d]),
+          f"{tag}: the IN_OUT_WR step equals the dense step within the "
+          f"rule (lossless)")
+    del g_d, g32
+
+    def causal_layer(real):
+        calls = [0]
+
+        def block_apply(p, x, c, kind, use_moe=False, *, causal=True,
+                        memory=None):
+            if not causal:                            # an encoder layer
+                causal = calls[0] == cfg.n_enc_layers // 2
+                calls[0] += 1
+            return real(p, x, c, kind, use_moe, causal=causal,
+                        memory=memory)
+        return block_apply
+
+    plants = {
+        "memory_halved": lambda: patched(
+            transformer, "encode", lambda real: lambda p, fe, c: (
+                lambda m: m[:, :m.shape[1] // 2])(real(p, fe, c))),
+        "encoder_layer_causal": lambda: patched(transformer, "block_apply",
+                                                causal_layer)}
+    faults_fail(tag, SEAMLESS_FAULTS, lambda f: lm_grads(
+        cfg, params, batch, torch.float32, plants[f]()), paths, loss64, g64)
+    del g64
+    torch.cuda.empty_cache()
+
+    ckdir = os.path.join(HERE, "build", "smoke_seamless_checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    losses, ms, save_s, launches, peak, (p_end, o_end, step_fn) = \
+        timed_steps(dev, cfg, params, SEAMLESS_STEPS, SEAMLESS_CUT, ckdir)
+    report_steps(tag, cfg, n_params(params), losses, ms, peak)
+    size_gb = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(ckdir) for f in fs) / 1e9
+    tmpl = {"params": p_end, "opt": o_end}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    step, state = ckpt.restore(ckdir, tmpl)
+    torch.cuda.synchronize(dev)
+    restore_s = time.perf_counter() - t0
+    del tmpl, p_end, o_end
+    p, o = state["params"], state["opt"]
+    resumed = []
+    for i in range(step, SEAMLESS_STEPS):
+        p, o, m = step_fn(p, o, train_batch(cfg, 0, i, batch=FAM_BATCH,
+                                            seq_len=FAM_SEQ, device=dev))
+        resumed.append(float(m["loss"]))
+    del p, o, state
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"{tag}: checkpoint of step {step} (the encoder's "
+          f"{len(params['encoder']['layers'])} layers a list) {size_gb:.2f} "
+          f"GB, save {save_s:.2f} s, restore {restore_s:.2f} s; resumed "
+          f"losses {resumed} vs {losses[SEAMLESS_CUT:]}", flush=True)
+    check(step == SEAMLESS_CUT and resumed == losses[SEAMLESS_CUT:],
+          f"{tag}: the losses resumed from the checkpoint are bit-equal to "
+          f"the uninterrupted run's")
+    check(sum(launches.values()) == 0,
+          f"{tag}: sparse_ffn_scenario runs the masked plain path, as in "
+          f"the reference: no kernel launched ({launches})")
+    return launches, cap
+
+
+def ffn_kernels_phase(dev, cap):
+    """seamless decoder layer 0's FFN on the first step's input and output
+    gradient (8 x 256 rows, 1,024 -> 4,096 -> 1,024) through ``ffn_apply``
+    under IN_OUT_WR with the kernels (K1, K2, K3 and the split-K reduce)
+    against the same config on the plain path; then every kernel call held
+    against its plain version, with the live-tile shares of each GEMM and
+    the kernels' times beside torch.matmul's.  Returns the launches."""
+    import torch
+    from repro_torch.core.policy import IN_OUT_WR
+    from repro_torch.kernel_times import event_ms
+    from repro_torch.kernels import stats
+    from repro_torch.models.ffn import FFNConfig, ffn_apply
+
+    x, p, dy = cap["x"], cap["p"], cap["dy"]
+    d, f = p["w_up"].shape
+
+    def run(policy):
+        w = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xi = x.clone().requires_grad_(True)
+        y = ffn_apply(w, xi, FFNConfig(d, f, "relu", policy))
+        return (y.detach(),) + torch.autograd.grad(
+            y, [w["w_up"], w["w_down"], xi], grad_outputs=dy)
+
+    kern = IN_OUT_WR.with_(kernel_impl="pallas")
+    plain = IN_OUT_WR.with_(kernel_impl="xla_ref")
+    stats.reset()
+    got, launches = launches_of(run, kern)
+    counts = stats.counts()
+    stats.reset()
+    want = run(plain)
+    for name, a, b in zip(("output", "dW_up", "dW_down", "dX"), got, want):
+        err, rel, ok = rel_err(a, b)
+        check(ok, f"seamless decoder layer 0 FFN {name} through the kernels "
+              f"within {KERNEL_RTOL} of the plain path ({rel:.2e} of "
+              f"max|plain|)")
+    print(f"seamless decoder layer 0 FFN: {x.shape[0]} x {d} -> {f} -> {d}; "
+          f"the kernel path's counts {counts}; launches {launches}",
+          flush=True)
+    check_path_kernels("lm_ffn_kernels", launches, FFN_KERNELS)
+    report, detail = REPORTERS
+    stats.reset()
+    with held_against_plain(dev, "seamless dec0 ffn", report, detail) as (
+            held, schedules, shares):
+        run(kern)
+    c = stats.counts()
+    stats.reset()
+    for case, out_live, a_live, b_live, flop_share in shares:
+        print(f"  live tiles {case}: output {out_live:.3f}, A "
+              f"{'-' if a_live is None else f'{a_live:.3f}'}, B "
+              f"{'-' if b_live is None else f'{b_live:.3f}'}; "
+              f"{flop_share:.3f} of the dense FLOPs", flush=True)
+    check(held["gemm"] == _sum(c, "gemm:") > 0
+          and held["queue"] == c.get("queue:prefix_sum", 0)
+          and held["encode"] == c.get("encode:act") > 0,
+          f"lm_ffn_kernels held every dispatch, queue and encode against "
+          f"its plain version ({held}; {schedules})")
+
+    def dense_ffn():
+        w = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xi = x.clone().requires_grad_(True)
+        y = torch.relu(xi @ w["w_up"]) @ w["w_down"]
+        return torch.autograd.grad(y, [w["w_up"], w["w_down"], xi],
+                                   grad_outputs=dy)
+    print(f"seamless decoder layer 0 FFN forward + backward: kernels "
+          f"{event_ms(lambda: run(kern)):.3f} ms, plain path "
+          f"{event_ms(lambda: run(plain)):.3f} ms, torch.matmul dense "
+          f"{event_ms(dense_ffn):.3f} ms (hidden ReLU live share "
+          f"{float((x @ p['w_up'] > 0).float().mean()):.3f})", flush=True)
+    return launches
+
+
+def internvl2_phase(dev):
+    """internvl2-1b at full width and depth: the first step against
+    float64 and with the frontend put after the tokens; three AdamW
+    steps.  Returns the steps' launches."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import lm_init
+
+    tag = INTERNVL2
+    cfg = ARCHS[INTERNVL2]
+    params = lm_init(0, cfg, dtype=torch.float32, device=dev)
+    batch = train_batch(cfg, 0, 0, batch=FAM_BATCH, seq_len=FAM_SEQ,
+                        device=dev)
+    paths = [p for p, _ in tree.leaves_with_paths(params)]
+    loss64, g64 = lm_grads(cfg, params, batch, torch.float64)
+    loss32, g32 = lm_grads(cfg, params, batch, torch.float32)
+    check(f64_verdict(tag, "clean", paths, loss32, g32, loss64, g64),
+          f"{tag} first step within {LM_LOSS_RTOL} (loss) and "
+          f"{LM_GRAD_RTOL} (every gradient leaf, relative L2) of float64")
+    del g32
+    after = lambda real: lambda fe, x: torch.cat([x, fe.to(x.dtype)], dim=1)
+    faults_fail(tag, INTERNVL2_FAULTS, lambda f: lm_grads(
+        cfg, params, batch, torch.float32,
+        patched(transformer, "prepend_frontend", after)),
+        paths, loss64, g64)
+    del g64
+    torch.cuda.empty_cache()
+    losses, ms, _, launches, peak, _ = timed_steps(dev, cfg, params,
+                                                   INTERNVL2_STEPS)
+    report_steps(tag, cfg, n_params(params), losses, ms, peak)
+    check(sum(launches.values()) == 0,
+          f"{tag}: the GLU FFN launches none of the sparse kernels")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def deepseek_phase(dev):
+    """deepseek-v2-lite-16b at full width, 3 layers (the dense prefix, 2
+    MoE layers with MLA): the first step against float64 under the f32
+    step's own routing and with two planted faults, the tokens each MoE
+    layer drops; then guarded ``train_loop`` runs as phase 7's: A (five
+    steps), B (three into a checkpoint), C (resumed from it to five).
+    Returns the launches of A."""
+    import shutil
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.runtime.guards import StepGuard
+
+    tag = f"{DEEPSEEK} ({DEEPSEEK_LAYERS} layers)"
+    cfg = ARCHS[DEEPSEEK].with_(n_layers=DEEPSEEK_LAYERS)
+    tcfg = TrainConfig(total_steps=DEEPSEEK_STEPS, checkpoint_every=0,
+                       keep_checkpoints=1, seed=0)
+    params = lm_init(tcfg.seed, cfg, dtype=torch.float32, device=dev)
+    batch = lm_batch(tcfg.seed, 0, batch=FAM_BATCH, seq_len=FAM_SEQ,
+                     vocab=cfg.vocab_size, device=dev)
+    paths = [p for p, _ in tree.leaves_with_paths(params)]
+    size = n_params(params)
+    routing = []
+    loss32, g32 = lm_grads(cfg, params, batch, torch.float32, hooked(
+        moe.set_routing_hook,
+        lambda name, t: routing.append((name, t)) or t))
+    keeps = [t for name, t in routing if name == "keep"]
+    print(f"{tag}: (token, choice) pairs dropped per MoE layer "
+          f"{[int((~k).sum()) for k in keeps]} of {keeps[0].numel()} "
+          f"(capacity {moe.capacity_of(keeps[0].shape[0], cfg.moe)} a "
+          f"expert)", flush=True)
+    replay = iter(routing)
+
+    def play(name, t):
+        name0, t0 = next(replay)
+        assert name0 == name, (name0, name)
+        return t0
+    loss64, g64 = lm_grads(cfg, params, batch, torch.float64,
+                           hooked(moe.set_routing_hook, play))
+    del routing, keeps
+    check(f64_verdict(tag, "clean", paths, loss32, g32, loss64, g64),
+          f"{tag} first step within {LM_LOSS_RTOL} (loss) and "
+          f"{LM_GRAD_RTOL} (every gradient leaf, relative L2) of float64 "
+          f"under its own routing")
+    del g32
+
+    def expert_zeroed(real):
+        calls = [0]
+
+        def expert_ffn(p, xs, c):
+            ys = real(p, xs, c)
+            if calls[0] == 0:                         # first MoE layer
+                keep = torch.ones(ys.shape[0], 1, 1, dtype=ys.dtype,
+                                  device=ys.device)
+                keep[DEEPSEEK_FAULT_EXPERT] = 0
+                ys = ys * keep
+            calls[0] += 1
+            return ys
+        return expert_ffn
+
+    plants = {
+        "expert_output_zeroed": lambda: patched(moe, "_expert_ffn",
+                                                expert_zeroed),
+        "aux_loss_dropped": lambda: patched(
+            transformer, "moe_apply", lambda real: lambda *a, **kw: (
+                lambda y, aux: (y, aux * 0))(*real(*a, **kw)))}
+    faults_fail(tag, DEEPSEEK_FAULTS, lambda f: lm_grads(
+        cfg, params, batch, torch.float32, plants[f]()), paths, loss64, g64)
+    del g64, params
+    torch.cuda.empty_cache()
+
+    ckdir = os.path.join(HERE, "build", "smoke_deepseek_checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def run(steps, ckpt_dir=None):
+        guard, stamps = StepGuard(), []
+        t0 = time.perf_counter()
+        out = train_loop(cfg, tcfg, batch_size=FAM_BATCH, seq_len=FAM_SEQ,
+                         steps=steps, ckpt_dir=ckpt_dir, log_every=0,
+                         guard=guard, device=dev,
+                         on_metrics=lambda i, m: stamps.append(
+                             time.perf_counter()))
+        torch.cuda.synchronize(dev)
+        losses, n = out["losses"], out["resumed_from"]
+        del out
+        torch.cuda.empty_cache()
+        return losses, n, guard, [t0] + stamps, time.perf_counter()
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses_a, _, guard_a, ts_a, _ = run(DEEPSEEK_STEPS)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    _, _, guard_b, ts_b, end_b = run(DEEPSEEK_CUT, ckdir)
+    size_gb = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(ckdir) for f in fs) / 1e9
+    saves = []
+    with final_save_counted(saves):
+        losses_c, resumed, guard_c, ts_c, _ = run(DEEPSEEK_STEPS, ckdir)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ms = [(t1 - t0) * 1e3 for t0, t1 in zip(ts_a, ts_a[1:])]
+    report_steps(tag, cfg, size, losses_a, ms, peak)
+    print(f"{tag}: checkpoint of step {DEEPSEEK_CUT} (the prefix a list) "
+          f"{size_gb:.2f} GB, save {end_b - ts_b[-1]:.2f} s (the final save "
+          f"of run B); run C resumed from step {resumed}: restore and first "
+          f"step {ts_c[1] - ts_c[0]:.2f} s; losses {losses_c}; its final "
+          f"save (step {saves}) counted, not written", flush=True)
+    check(saves == [DEEPSEEK_STEPS], f"{tag}: run C reached its final save")
+    verdicts = [v for _, v in guard_a.verdicts + guard_b.verdicts] + \
+        [v for s_, v in guard_c.verdicts if s_ >= DEEPSEEK_CUT]
+    check(len(verdicts) == 2 * DEEPSEEK_STEPS and set(verdicts) == {"ok"},
+          f"{tag}: every guarded step's verdict is ok ({verdicts})")
+    check(resumed == DEEPSEEK_CUT
+          and losses_c == losses_a[DEEPSEEK_CUT:],
+          f"{tag}: run C's losses for steps {DEEPSEEK_CUT}-"
+          f"{DEEPSEEK_STEPS - 1} bit-equal to run A's")
+    check(sum(launches.values()) == 0,
+          f"{tag}: MoE, MLA and GLU FFNs launch none of the sparse kernels")
+    return launches
+
+
+def lm_families_phase(dev):
+    """Phase 8: the encoder-decoder, frontend and MoE LMs at full width."""
+    t0 = time.perf_counter()
+    by_path = {}
+    by_path["lm_seamless"], cap = seamless_phase(dev)
+    by_path["lm_ffn_kernels"] = ffn_kernels_phase(dev, cap)
+    del cap
+    by_path["lm_internvl2"] = internvl2_phase(dev)
+    by_path["lm_deepseek3"] = deepseek_phase(dev)
+    print(f"phase 8 (seamless, its FFN on the kernels, internvl2, deepseek): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
 def main():
     try:
         import torch
@@ -2033,6 +2631,7 @@ def main():
     by_path = {net: end_to_end(dev, net) for net in PATHS}
     by_path.update(experiment_phase(dev))
     by_path.update(guarded_lm_phase(dev))
+    by_path.update(lm_families_phase(dev))
 
     mm_cu = "src/repro_torch/csrc/masked_matmul.cu"
     mm_py = "src/repro/kernels/masked_matmul.py"

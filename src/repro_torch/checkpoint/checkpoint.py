@@ -96,7 +96,7 @@ def _host(leaf) -> np.ndarray:
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             raise NotImplementedError(
-                "bf16 leaves: the LM's bf16 paths are ROADMAP A16")
+                "bf16 leaves: the LM's bf16 paths are ROADMAP A16c")
         return t.numpy()
     return np.asarray(leaf)
 

@@ -14,6 +14,8 @@ from repro_torch.optim.optimizer import OptConfig, adamw_update
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], k: int):
+    """Every entry of ``batch`` (tokens, and a frontend model's
+    ``frontend_embeds``) split along the batch axis into ``k``."""
     def r(x):
         b = x.shape[0]
         if b % k:

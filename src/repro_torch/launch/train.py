@@ -18,8 +18,14 @@ The autotuner's device-side telemetry is folded once a step
 (``kernels.autotune.fold_pending``).  Meshes, FSDP and the SPMD step wait
 for the sharding port (ROADMAP A18).
 
+Decoder-only configs without a frontend train here (dense, MoE, MLA, an
+unrolled dense prefix); enc-dec and frontend configs raise, since the
+loop's data is ``lm_batch`` tokens only, as in the reference.
+
 Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
           [--smoke] [--steps 100] [--ckpt-dir DIR] [--device cuda]
+      PYTHONPATH=src python -m repro_torch.launch.train \\
+          --arch deepseek-v2-lite-16b --smoke --steps 20 --device cpu
 """
 from __future__ import annotations
 
@@ -100,6 +106,11 @@ def train_loop(
     if mesh is not None or fsdp or spmd:
         raise NotImplementedError(
             "mesh / fsdp / spmd training: the sharding port is ROADMAP A18")
+    if cfg.enc_dec or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the loop feeds lm_batch tokens only, no frontend "
+            f"embeddings (as the reference's loop); train an enc-dec or "
+            f"frontend model through launch.steps.make_train_step")
     dev = resolve_device(device)
     opt_cfg = OptConfig(
         learning_rate=tcfg.learning_rate, warmup_steps=tcfg.warmup_steps,

@@ -1,12 +1,13 @@
-"""Attention for a decoder-only dense model: GQA with RoPE over blockwise
-(flash-style) causal attention — the port of the parts of
-``repro.models.attention`` such a model runs.
+"""Attention: GQA with RoPE, MLA (DeepSeek-V2) and cross-attention over
+blockwise (flash-style) attention — the port of the training paths of
+``repro.models.attention``.
 
 Plain PyTorch, in the reference's chunk order: each q chunk runs an online
 softmax over the kv chunks, so the (T × T) score matrix is never
 materialized at once.  It is XLA code in the JAX package, not a Pallas
-kernel.  MLA, cross-attention, sliding windows and the cached decode path
-wait for ROADMAP A16/A17 and raise ``NotImplementedError``.
+kernel.  Sliding windows wait for ROADMAP A16c and raise
+``NotImplementedError``; the cached decode paths (``attn_decode``,
+``_mla_decode``) wait for A17.
 """
 from __future__ import annotations
 
@@ -43,16 +44,28 @@ class AttnConfig:
 
 
 def _unported(cfg: AttnConfig) -> None:
-    if cfg.use_mla:
-        raise NotImplementedError("MLA attention: ROADMAP A16")
     if cfg.window is not None:
-        raise NotImplementedError("sliding-window attention: ROADMAP A16")
+        raise NotImplementedError("sliding-window attention: ROADMAP A16c")
 
 
 def attn_init(gen: torch.Generator, cfg: AttnConfig,
               dtype=torch.float32) -> Params:
-    """wq, wk, wv, wo drawn from ``gen`` on its device."""
+    """wq, wk, wv, wo (MLA: wq, wdkv, wkr, wuk, wuv, wo) drawn from ``gen``
+    on its device."""
     _unported(cfg)
+    if cfg.use_mla:
+        qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        h = cfg.n_heads
+        return {
+            "wq": dense_init(gen, cfg.d_model, h * qd, dtype),
+            "wdkv": dense_init(gen, cfg.d_model, cfg.kv_lora_rank, dtype),
+            "wkr": dense_init(gen, cfg.d_model, cfg.qk_rope_dim, dtype),
+            "wuk": dense_init(gen, cfg.kv_lora_rank, h * cfg.qk_nope_dim,
+                              dtype),
+            "wuv": dense_init(gen, cfg.kv_lora_rank, h * cfg.v_head_dim,
+                              dtype),
+            "wo": dense_init(gen, h * cfg.v_head_dim, cfg.d_model, dtype),
+        }
     hd = cfg.head_dim
     return {
         "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype),
@@ -152,11 +165,14 @@ def blockwise_attention(
 
 def attn_apply(params: Params, x: torch.Tensor, cfg: AttnConfig,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """GQA self-attention with RoPE, causal (the training path)."""
+    """GQA (or MLA) self-attention with RoPE, causal (the training
+    path)."""
     _unported(cfg)
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)
+    if cfg.use_mla:
+        return _mla_apply(params, x, cfg, positions)
     q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = (x @ params["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     v = (x @ params["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
@@ -165,4 +181,55 @@ def attn_apply(params: Params, x: torch.Tensor, cfg: AttnConfig,
     o = blockwise_attention(q, k, v, causal=True, window=cfg.window,
                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                             schedule=cfg.schedule)
+    return o.reshape(b, t, -1) @ params["wo"]
+
+
+def _mla_apply(params: Params, x: torch.Tensor, cfg: AttnConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Multi-head latent attention: keys and values expanded from the
+    ``kv_lora_rank`` latent, one RoPE key shared by every head; q/k head
+    dim ``qk_nope + qk_rope`` against ``v_head_dim``."""
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    q = (x @ params["wq"]).reshape(b, t, h, qd)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = x @ params["wdkv"]                              # (B,T,r)
+    k_rope = apply_rope((x @ params["wkr"])[:, :, None, :],
+                        positions, cfg.rope_theta)         # (B,T,1,dr)
+    k_nope = (c_kv @ params["wuk"]).reshape(b, t, h, cfg.qk_nope_dim)
+    vv = (c_kv @ params["wuv"]).reshape(b, t, h, cfg.v_head_dim)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, t, h, cfg.qk_rope_dim)],
+                   dim=-1)
+    o = blockwise_attention(qf, kf, vv, causal=True,
+                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                            schedule=cfg.schedule)
+    return o.reshape(b, t, -1) @ params["wo"]
+
+
+def cross_attn_init(gen: torch.Generator, cfg: AttnConfig, d_memory: int,
+                    dtype=torch.float32) -> Params:
+    """wq from the decoder's width, wk/wv from the memory's, wo."""
+    hd = cfg.head_dim
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype),
+        "wk": dense_init(gen, d_memory, cfg.n_kv_heads * hd, dtype),
+        "wv": dense_init(gen, d_memory, cfg.n_kv_heads * hd, dtype),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype),
+    }
+
+
+def cross_attn_apply(params: Params, x: torch.Tensor, memory: torch.Tensor,
+                     cfg: AttnConfig) -> torch.Tensor:
+    """Decoder queries over the encoder's memory (B, S, d_memory): no
+    RoPE, no causal mask; S need not equal T."""
+    b, t, _ = x.shape
+    s = memory.shape[1]
+    q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = (memory @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (memory @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    o = blockwise_attention(q, k, v, causal=False,
+                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     return o.reshape(b, t, -1) @ params["wo"]

@@ -7,6 +7,10 @@ gets OUTPUT sparsity (tiles the activation mask kills are skipped) and the
 up-projection's backward gets INPUT sparsity from the now-sparse hidden
 gradient.  GLU activations are dense by construction (paper §2.1 scopes
 them out); they use plain products.
+
+``set_relu_mask_hook`` is a test seam: a float64 check of a whole step
+records each ReLU FFN's σ′ mask in an f32 step and replays it in the
+float64 step (``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +46,33 @@ class FFNConfig:
         return self.activation in ("relu", "relu2")
 
 
+# Called as ``hook(h_pre)`` on each ReLU-family FFN's hidden
+# pre-activation; a returned boolean mask m replaces σ′: the hidden
+# activation becomes h_pre·m (relu) or (h_pre·m)² (relu2).  Returning None
+# changes nothing.
+_RELU_MASK_HOOK = None
+
+
+def set_relu_mask_hook(fn):
+    """Install (or, with None, remove) the ReLU mask hook; returns the
+    previous one."""
+    global _RELU_MASK_HOOK
+    prev, _RELU_MASK_HOOK = _RELU_MASK_HOOK, fn
+    return prev
+
+
+def ffn_params(gen: torch.Generator, cfg: FFNConfig,
+               dtype=torch.float32) -> Params:
+    """w_gate (GLU only), w_up, w_down drawn from ``gen`` on its device."""
+    names = ("w_gate", "w_up", "w_down") if cfg.is_glu else ("w_up", "w_down")
+    params = {}
+    for name in names:
+        d_in, d_out = (cfg.d_ff, cfg.d_model) if name == "w_down" \
+            else (cfg.d_model, cfg.d_ff)
+        params[name] = dense_init(gen, d_in, d_out, dtype)
+    return params
+
+
 def ffn_init(seed: int, cfg: FFNConfig, *, device="cuda",
              dtype=torch.float32) -> Params:
     """Weights drawn on the CPU from a ``torch.Generator`` seeded with
@@ -49,14 +80,8 @@ def ffn_init(seed: int, cfg: FFNConfig, *, device="cuda",
     unless ``device="cpu"``).  Leaves require grad."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    names = ("w_gate", "w_up", "w_down") if cfg.is_glu else ("w_up", "w_down")
-    params = {}
-    for name in names:
-        d_in, d_out = (cfg.d_ff, cfg.d_model) if name == "w_down" \
-            else (cfg.d_model, cfg.d_ff)
-        params[name] = dense_init(gen, d_in, d_out, dtype).to(dev) \
-            .requires_grad_(True)
-    return params
+    return {name: w.to(dev).requires_grad_(True)
+            for name, w in ffn_params(gen, cfg, dtype).items()}
 
 
 def ffn_apply(params: Params, x: torch.Tensor, cfg: FFNConfig
@@ -75,9 +100,21 @@ def ffn_apply(params: Params, x: torch.Tensor, cfg: FFNConfig
         # sparse hidden gradient → INPUT sparsity), then the fused unit.
         with stats.layer_scope("ffn_up"):
             h_pre = sparse_matmul(x2, params["w_up"], pol)
+        if _RELU_MASK_HOOK is not None and \
+                _RELU_MASK_HOOK(h_pre.detach()) is not None:
+            raise ValueError("a replaced ReLU mask needs the dense FFN "
+                             "(sparse_policy None)")
         with stats.layer_scope("ffn_down"):
             y = act_matmul(h_pre, params["w_down"], pol, cfg.activation)
     else:
-        act = activation_fn(cfg.activation)
-        y = act(x2 @ params["w_up"]) @ params["w_down"]
+        h_pre = x2 @ params["w_up"]
+        mask = None
+        if cfg.relu_family and _RELU_MASK_HOOK is not None:
+            mask = _RELU_MASK_HOOK(h_pre.detach())
+        if mask is None:
+            h = activation_fn(cfg.activation)(h_pre)
+        else:
+            h = h_pre * mask.to(h_pre.dtype)
+            h = h * h if cfg.activation == "relu2" else h
+        y = h @ params["w_down"]
     return y.reshape(*shape[:-1], -1)

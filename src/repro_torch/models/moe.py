@@ -1,12 +1,37 @@
-"""The mixture-of-experts FFN's config (the port of ``repro.models.moe.MoEConfig``).
+"""Mixture-of-experts FFN with capacity-based dispatch — the port of
+``repro.models.moe``.
 
-Only the config is ported: ``configs.base.ModelConfig`` needs it.  The
-mixture-of-experts FFN itself wait for ROADMAP A16; the LM stack raises
-``NotImplementedError`` for a config that uses them.
+Top-k softmax routing (optionally device-limited: each token's experts come
+from at most ``top_groups`` of ``device_groups`` expert groups), the Switch
+load-balance aux loss, per-expert capacity positions by a cumulative sum
+over the one-hot routing in token order (GShard), batched ``(E, C, d)``
+expert products, and a combine weighted by the renormalized gates.  Tokens
+over capacity are dropped: their combine weight is zero and the residual
+carries them.
+
+The reference scatters tokens into the expert buffers with
+``buf.at[slot].set(..., mode="drop")``, every dropped (token, choice)
+landing on one discarded sentinel row.  The port builds the same buffers as
+a gather through the inverse map slot → (token, choice), so each live
+buffer row has exactly one source, and combines with a gather of each
+token's ``k`` slots, whose only shared row is the sentinel's zero row.  The
+backward of both gathers therefore accumulates at most one value into any
+row that is used, and the step is deterministic on the card.
+
+``set_routing_hook`` is a test seam: a float64 check replays the routing an
+f32 step chose (``chip_smoke.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .common import activation_fn, dense_init
+from .ffn import FFNConfig, ffn_apply, ffn_params
+
+Params = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,3 +49,131 @@ class MoEConfig:
     # ``device_groups`` expert shards — bounds EP all-to-all fan-out.
     device_groups: int = 0          # 0 → unrestricted
     top_groups: int = 0
+
+    def shared_config(self, d_model: int) -> FFNConfig:
+        return FFNConfig(d_model, self.d_ff_shared
+                         or self.d_ff_expert * self.n_shared_experts,
+                         self.activation)
+
+
+# Called as ``hook(name, tensor)`` with name "group_idx" (the chosen expert
+# groups, device-limited routing only), "gate_idx" (the chosen experts) and
+# "keep" (the (token, choice) pairs within capacity); it returns the tensor
+# the layer goes on with.
+_ROUTING_HOOK = None
+
+
+def set_routing_hook(fn):
+    """Install (or, with None, remove) the routing hook; returns the
+    previous one."""
+    global _ROUTING_HOOK
+    prev, _ROUTING_HOOK = _ROUTING_HOOK, fn
+    return prev
+
+
+def _routed(name: str, t: torch.Tensor) -> torch.Tensor:
+    return t if _ROUTING_HOOK is None else _ROUTING_HOOK(name, t)
+
+
+def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
+             dtype=torch.float32) -> Params:
+    """Router (f32), stacked expert weights (E, ·, ·) and the shared
+    experts' FFN, drawn from ``gen`` on its device."""
+    e, f = cfg.n_experts, cfg.d_ff_expert
+    std = d_model ** -0.5
+
+    def ew(a, b):
+        return (torch.randn((e, a, b), generator=gen, device=gen.device)
+                * std).to(dtype)
+
+    p: Params = {"router": dense_init(gen, d_model, e, torch.float32)}
+    if cfg.activation.endswith("_glu"):
+        p["w_gate"] = ew(d_model, f)
+        p["w_up"] = ew(d_model, f)
+        p["w_down"] = ew(f, d_model)
+    else:
+        p["w_up"] = ew(d_model, f)
+        p["w_down"] = ew(f, d_model)
+    if cfg.n_shared_experts > 0:
+        p["shared"] = ffn_params(gen, cfg.shared_config(d_model), dtype)
+    return p
+
+
+def _expert_ffn(p: Params, xs: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """xs: (E, C, d) -> (E, C, d), batched over the expert axis."""
+    if cfg.activation.endswith("_glu"):
+        act = activation_fn(cfg.activation.split("_")[0])
+        h = act(torch.bmm(xs, p["w_gate"])) * torch.bmm(xs, p["w_up"])
+    else:
+        h = activation_fn(cfg.activation)(torch.bmm(xs, p["w_up"]))
+    return torch.bmm(h, p["w_down"])
+
+
+def capacity_of(tokens: int, cfg: MoEConfig) -> int:
+    """Slots per expert: ``int(T·k / E · capacity_factor)``, at least 1."""
+    return max(1, int(tokens * cfg.top_k / cfg.n_experts
+                      * cfg.capacity_factor))
+
+
+def moe_apply(params: Params, x: torch.Tensor, cfg: MoEConfig, *,
+              capacity: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., d_model) → (y, aux_loss)."""
+    shape = x.shape
+    d = shape[-1]
+    xt = x.reshape(-1, d)
+    t = xt.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    if capacity is None:
+        capacity = capacity_of(t, cfg)
+    dev = x.device
+
+    logits = xt.to(params["router"].dtype) @ params["router"]   # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    if cfg.device_groups and cfg.top_groups:
+        g = cfg.device_groups
+        pg = probs.reshape(t, g, e // g)
+        gidx = _routed("group_idx", torch.topk(
+            pg.amax(dim=-1), cfg.top_groups, dim=-1).indices)  # (T, top_g)
+        gmask = torch.zeros((t, g), dtype=probs.dtype, device=dev) \
+            .scatter_(1, gidx, 1.0)
+        probs = (pg * gmask[..., None]).reshape(t, e)
+    gate_idx = _routed("gate_idx", torch.topk(probs, k, dim=-1).indices)
+    gate_vals = probs.gather(1, gate_idx)                       # (T, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # Load-balance aux loss (Switch): E · Σ_e f_e · P_e
+    me = probs.mean(dim=0)
+    ce = torch.nn.functional.one_hot(gate_idx[:, 0], e).to(probs.dtype) \
+        .mean(dim=0)
+    aux = cfg.router_aux_weight * e * torch.sum(me * ce)
+
+    # Capacity positions: each (token, choice)'s place in its expert's
+    # buffer, in token order (GShard).
+    ohf = torch.nn.functional.one_hot(gate_idx.reshape(-1), e)  # (T·k, E)
+    pos = ((torch.cumsum(ohf, dim=0) - ohf) * ohf).sum(-1).reshape(t, k)
+    keep = _routed("keep", pos < capacity)
+    slot = gate_idx * capacity + torch.clamp(pos, max=capacity - 1)
+    slot = torch.where(keep, slot, torch.full_like(slot, e * capacity))
+
+    # Dispatch: buffer row s takes (token, choice) src[s]; rows nobody
+    # fills take the appended zero row.  Live slots are distinct, so only
+    # the discarded sentinel entry of ``src`` is written more than once.
+    n = t * k
+    src = torch.full((e * capacity + 1,), n, dtype=torch.long, device=dev)
+    src[slot.reshape(-1)] = torch.arange(n, device=dev)
+    rows = torch.cat([xt.unsqueeze(1).expand(t, k, d).reshape(n, d),
+                      xt.new_zeros((1, d))])
+    xs = rows[src[:-1]].reshape(e, capacity, d)
+    ys = _expert_ffn(params, xs, cfg).reshape(e * capacity, d)
+    ys = torch.cat([ys, ys.new_zeros((1, d))])
+
+    # Combine: each token's k outputs weighted by the normalized gates.
+    w = (gate_vals * keep.to(gate_vals.dtype))[..., None]
+    y = (ys[slot] * w.to(ys.dtype)).sum(dim=1).to(x.dtype)
+
+    if "shared" in params:
+        y = y + ffn_apply(params["shared"], xt, cfg.shared_config(d))
+    return y.reshape(shape), aux
+

@@ -1,7 +1,7 @@
 """The Mamba SSM block's config (the port of ``repro.models.ssm.SSMConfig``).
 
 Only the config is ported: ``configs.base.ModelConfig`` needs it.  The
-Mamba SSM block itself wait for ROADMAP A16; the LM stack raises
+Mamba SSM block itself wait for ROADMAP A16c; the LM stack raises
 ``NotImplementedError`` for a config that uses them.
 """
 from __future__ import annotations

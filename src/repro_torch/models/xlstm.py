@@ -1,7 +1,7 @@
 """The xLSTM blocks' config (the port of ``repro.models.xlstm.XLSTMConfig``).
 
 Only the config is ported: ``configs.base.ModelConfig`` needs it.  The
-xLSTM blocks themselves wait for ROADMAP A16; the LM stack raises
+xLSTM blocks themselves wait for ROADMAP A16c; the LM stack raises
 ``NotImplementedError`` for a config that uses them.
 """
 from __future__ import annotations

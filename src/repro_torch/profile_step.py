@@ -5,12 +5,20 @@ Run on a machine with a CUDA device:
       [--policy IN_OUT_WR] [--scan-signed-inputs] [--image-size 224]
       [--width 1.0] [--batch 8] [--trace out.json]
   PYTHONPATH=src python -m repro_torch.profile_step --arch smollm-360m
-      [--batch 8] [--seq 128]
+      [--batch 8] [--seq 128] [--n-layers N]
+  PYTHONPATH=src python -m repro_torch.profile_step --arch seamless-m4t-medium
+      [--sparse-ffn IN_OUT_WR]
+  PYTHONPATH=src python -m repro_torch.profile_step \
+      --arch deepseek-v2-lite-16b --n-layers 3 --seq 512
 
 ``--arch`` profiles the LM trainer's step instead (``launch/steps``: loss,
 gradients and AdamW, f32, random weights), its device time keyed
 ``forward`` and ``adamw`` by the step's ranges and the backward pass,
-launched from autograd's threads, as ``(no layer)``.
+launched from autograd's threads, as ``(no layer)``.  Its batch is
+``data.pipeline.train_batch`` (enc-dec and frontend configs get stub
+frontend embeddings beside the tokens, as the reference lays them out);
+``--seq`` defaults to 512 for those, 128 otherwise.  ``--n-layers`` cuts
+the decoder's depth.
 
 Runs two warm-up steps, then one step under ``torch.profiler`` (CPU and
 CUDA activities), and prints: the step's wall time, the summed device time
@@ -140,14 +148,16 @@ def profile_step(*, net="vgg16", policy="IN_OUT_WR",
     return res
 
 
-def profile_lm_step(*, arch="smollm-360m", batch=8, seq=128,
-                    device="cuda", trace=None):
+def profile_lm_step(*, arch="smollm-360m", batch=8, seq=None,
+                    n_layers=None, sparse_ffn=None, device="cuda",
+                    trace=None):
     """Profile one LM train step (``launch/steps.make_train_step``, AdamW)
-    after two warm-up steps; returns a summary dict as ``profile_step``."""
+    after two warm-up steps; returns a summary dict as ``profile_step``,
+    with ``peak_gib``, the device memory peak of the three steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import ARCHS
-    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.data.pipeline import train_batch
     from repro_torch.launch import steps
     from repro_torch.models import transformer
     from repro_torch.optim import optimizer
@@ -155,17 +165,22 @@ def profile_lm_step(*, arch="smollm-360m", batch=8, seq=128,
     dev = resolve_device(device)
     set_full_precision()
     cfg = ARCHS[arch]
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    if sparse_ffn:
+        cfg = cfg.with_(sparse_ffn_scenario=sparse_ffn)
+    if seq is None:
+        seq = 512 if cfg.enc_dec or cfg.frontend else 128
     ocfg = optimizer.OptConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
     params = transformer.lm_init(0, cfg, dtype=torch.float32, device=dev)
     opt = optimizer.adamw_init(params)
     step_fn = steps.make_train_step(cfg, ocfg)
 
     for i in range(2):
-        params, opt, _ = step_fn(params, opt, lm_batch(
-            0, i, batch=batch, seq_len=seq, vocab=cfg.vocab_size,
-            device=dev))
-    b = lm_batch(0, 2, batch=batch, seq_len=seq, vocab=cfg.vocab_size,
-                 device=dev)
+        params, opt, _ = step_fn(params, opt, train_batch(
+            cfg, 0, i, batch=batch, seq_len=seq, device=dev))
+    b = train_batch(cfg, 0, 2, batch=batch, seq_len=seq, device=dev)
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -180,6 +195,7 @@ def profile_lm_step(*, arch="smollm-360m", batch=8, seq=128,
             res = summarize_trace(json.load(f)["traceEvents"])
     res["wall_ms"] = wall_ms
     res["idle_share"] = max(0.0, 1.0 - res["busy_ms"] / wall_ms)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     return res
 
 
@@ -188,7 +204,14 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default=None,
                     help="profile the LM trainer's step of this config "
                          "(repro_torch.configs.ARCHS) instead of a CNN's")
-    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--seq", type=int, default=None,
+                    help="LM positions (default 512 for enc-dec and "
+                         "frontend configs, else 128)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the LM decoder to this depth")
+    ap.add_argument("--sparse-ffn", default=None, choices=list(SCENARIOS),
+                    help="the LM config's sparse_ffn_scenario (a ReLU FFN's "
+                         "masked plain path, as in the reference)")
     ap.add_argument("--net", default="vgg16", choices=list(NETWORKS))
     ap.add_argument("--policy", default="IN_OUT_WR", choices=list(SCENARIOS))
     ap.add_argument("--scan-signed-inputs", action="store_true")
@@ -200,7 +223,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.arch:
         res = profile_lm_step(arch=args.arch, batch=args.batch,
-                              seq=args.seq, trace=args.trace)
+                              seq=args.seq, n_layers=args.n_layers,
+                              sparse_ffn=args.sparse_ffn, trace=args.trace)
+        print(f"{args.arch}: device memory peak {res['peak_gib']:.2f} GiB")
     else:
         res = profile_step(net=args.net, policy=args.policy,
                            scan_signed_inputs=args.scan_signed_inputs,

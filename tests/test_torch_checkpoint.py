@@ -212,3 +212,53 @@ def test_port_save_restores_in_the_reference(tmp_path):
             jax.tree_util.tree_flatten_with_path(jt)[0]]
     assert doc["paths"] == want
     assert doc["treedef"] == str(jax.tree_util.tree_structure(jt))
+
+
+def _lm_state(pkg, name):
+    """The smoke config's params and AdamW state from either package: the
+    reference's drawn from its key, the port's from its seed."""
+    if pkg == "jax":
+        from repro.configs import SMOKE_ARCHS as J_SMOKE
+        from repro.models.transformer import lm_init
+        from repro.optim.optimizer import adamw_init
+        p = lm_init(jax.random.key(3), J_SMOKE[name], dtype=jnp.float32)
+        return {"params": p, "opt": adamw_init(p)}
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.optim.optimizer import adamw_init
+    p = lm_init(3, SMOKE_ARCHS[name], dtype=torch.float32, device="cpu")
+    return {"params": p, "opt": adamw_init(p)}
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-medium",
+                                  "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_list_valued_lm_trees_restore_across_packages(tmp_path, name,
+                                                      writer):
+    """seamless's ``encoder/layers`` and deepseek's ``prefix`` are lists of
+    layer trees: a save of either package's LM state restores in the
+    other, leaf for leaf, with the same paths and structure string."""
+    import json
+    jt, tt = _lm_state("jax", name), _lm_state("torch", name)
+    assert isinstance((jt["params"].get("encoder") or {}).get("layers",
+                      jt["params"].get("prefix")), list)
+    assert [p for p, _ in ttree.leaves_with_paths(tt)] == \
+        [jax.tree_util.keystr(k) for k, _ in
+         jax.tree_util.tree_flatten_with_path(jt)[0]]
+    assert ttree.treedef_str(tt) == str(jax.tree_util.tree_structure(jt))
+    if writer == "jax":
+        jckpt.save(str(tmp_path), 4, jt)
+        step, back = ckpt.restore(str(tmp_path), tt)
+        want = [np.asarray(x) for x in jax.tree.leaves(jt)]
+        got = [x.numpy() for x in ttree.leaves(back)]
+    else:
+        ckpt.save(str(tmp_path), 4, tt)
+        step, back = jckpt.restore(str(tmp_path), jt)
+        want = [x.numpy() for x in ttree.leaves(tt)]
+        got = [np.asarray(x) for x in jax.tree.leaves(back)]
+    assert step == 4 and len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    with open(tmp_path / "step_00000004" / "treedef.json") as f:
+        assert json.load(f)["treedef"] == \
+            str(jax.tree_util.tree_structure(jt))

@@ -219,12 +219,17 @@ def test_train_loop_resume_equals_uninterrupted(tmp_path):
 
 
 def test_unported_families_raise():
-    for name in ("deepseek-v2-lite-16b", "jamba-1.5-large-398b",
-                 "seamless-m4t-medium", "xlstm-350m", "internvl2-1b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    # Mamba (M), xLSTM (m/s), sliding windows (L) and the bf16 LM paths
+    for name in ("jamba-1.5-large-398b", "xlstm-350m", "gemma3-12b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A16c"):
             ttr.lm_init(0, T_SMOKE[name], dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(NotImplementedError, match="A16c"):
         ttr.lm_init(0, T_SMOKE["smollm-360m"], device="cpu")   # bf16 config
+    # ported in the second half of A16: enc-dec, frontends, MLA, MoE
+    for name in ("deepseek-v2-lite-16b", "seamless-m4t-medium",
+                 "internvl2-1b", "grok-1-314b"):
+        assert ttr.lm_init(0, T_SMOKE[name], dtype=torch.float32,
+                           device="cpu")["embed"].shape == (512, 64)
     with pytest.raises(NotImplementedError, match="A18"):
         train_loop(T_SMOKE["smollm-360m"], TTrainConfig(), batch_size=2,
                    seq_len=4, steps=1, spmd=True, device="cpu")
