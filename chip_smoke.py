@@ -75,7 +75,22 @@ Phases (any failure makes the exit code nonzero):
      rule, one planted fault and three steps; deepseek-v2-lite at 3 layers
      with the float64 rule under its own routing, two planted faults, the
      tokens dropped per MoE layer, and guarded train_loop runs with a
-     bit-equal resume.
+     bit-equal resume;
+  9. sliding windows, Mamba, xLSTM, bf16 and serving, at full width:
+     gemma3-12b served at full depth in bf16 (ServeEngine at the serve
+     CLI's defaults: tick ms, tokens/s, the weight-read bound), then cut
+     to one period (6 layers): decode across the ring buffer's wrap
+     against the parallel forward, the first bf16 step at 1 x 4,096
+     against f32 with two planted window faults, three AdamW steps;
+     xlstm-350m (full depth, f32): train_loop with a checkpoint and a
+     bit-equal resume, the first step against float64 with two planted
+     faults (at full depth beside float64 steps from params one f32
+     rounding off), serving and decode against the parallel forward; jamba's
+     layer 0 (Mamba + FFN) against float64 and ssm_decode against
+     ssm_apply; deepseek-v2-lite served at full depth in bf16 with MLA's
+     absorbed decode against the parallel forward, and that decode in
+     f32 at 4 layers; the serve CLI.  Every decode check also rejects a
+     planted fault.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, it exits nonzero and prints no result.
@@ -2119,27 +2134,41 @@ def lm_grads(cfg, params, batch, dtype, *plants):
     return float(loss), grads
 
 
-def f64_verdict(tag, what, paths, loss, grads, loss64, g64):
-    """PR 17's rule: the loss within LM_LOSS_RTOL relative and every
-    gradient leaf within LM_GRAD_RTOL in relative L2 norm of float64."""
+def f64_verdict(tag, what, paths, loss, grads, loss64, g64,
+                grad_rtol=None):
+    """Phase 7's rule: the loss within LM_LOSS_RTOL relative and every
+    gradient leaf within LM_GRAD_RTOL (or ``grad_rtol``: one bound, or a
+    list with one per leaf) in relative L2 norm of float64."""
+    from repro_torch.conditioning import leaf_rels
+
+    grad_rtol = grad_rtol or LM_GRAD_RTOL
+    per_leaf = isinstance(grad_rtol, list)
+    bounds = grad_rtol if per_leaf else [grad_rtol] * len(g64)
     loss_rel = abs(loss - loss64) / abs(loss64)
-    rels = [float((a.double() - b).norm() / b.norm().clamp_min(1e-300))
-            for a, b in zip(grads, g64)]
-    worst = max(range(len(rels)), key=rels.__getitem__)
-    passed = loss_rel <= LM_LOSS_RTOL and rels[worst] <= LM_GRAD_RTOL
+    rels = leaf_rels(grads, g64)
+    order = sorted(range(len(rels)), key=lambda i: rels[i] / bounds[i],
+                   reverse=True)
+    passed = loss_rel <= LM_LOSS_RTOL and all(
+        r <= b for r, b in zip(rels, bounds))
     print(f"{tag} first step vs float64 [{what}]: loss {loss:.7f} vs "
-          f"{loss64:.7f} (rel {loss_rel:.2e}); worst gradient leaf "
-          f"{paths[worst]} rel L2 {rels[worst]:.2e}; "
-          f"{'passes' if passed else 'fails'} the rule", flush=True)
+          f"{loss64:.7f} (rel {loss_rel:.2e}); worst gradient leaves "
+          + ", ".join(f"{paths[i]} rel L2 {rels[i]:.2e}"
+                      + (f" (bound {bounds[i]:.2e})" if per_leaf else "")
+                      for i in order[:3])
+          + f"; {'passes' if passed else 'fails'} the rule (leaves "
+          + (f"per leaf, reading/bound at most "
+             f"{rels[order[0]] / bounds[order[0]]:.3f})" if per_leaf
+             else f"{grad_rtol:g})"), flush=True)
     return passed
 
 
-def faults_fail(tag, faults, run, paths, loss64, g64):
+def faults_fail(tag, faults, run, paths, loss64, g64, grad_rtol=None):
     """Each planted fault's first step (``run(fault)``) must fail the
     float64 rule."""
     for fault in faults:
         loss, grads = run(fault)
-        check(not f64_verdict(tag, fault, paths, loss, grads, loss64, g64),
+        check(not f64_verdict(tag, fault, paths, loss, grads, loss64, g64,
+                              grad_rtol),
               f"the float64 rule rejects {tag}'s planted {fault}")
         del grads
 
@@ -2591,6 +2620,602 @@ def lm_families_phase(dev):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: sliding windows, Mamba, xLSTM, bf16 and serving
+# ---------------------------------------------------------------------------
+
+GEMMA3, XLSTM, JAMBA = "gemma3-12b", "xlstm-350m", "jamba-1.5-large-398b"
+# ServeEngine at launch/serve.py's defaults.
+SERVE = dict(slots=4, requests=8, prompt=6, tokens=12, max_len=256)
+GEMMA3_PERIOD = 6                    # one period, LLLLLG
+GEMMA3_DECODE_T = 1100               # past the window of 1,024: the ring wraps
+GEMMA3_TRAIN_T, GEMMA3_STEPS = 4096, 3
+XLSTM_BATCH, XLSTM_SEQ, XLSTM_STEPS, XLSTM_CUT = 8, 512, 5, 3
+# Past two mLSTM chunks of 64; the parallel forward needs a multiple of the
+# chunk (the reference asserts it), so 192 rather than 160.
+XLSTM_DECODE = (2, 192)
+JAMBA_T, JAMBA_DECODE_T = 2048, 512  # 8 chunks of 256; 2 chunks
+DEEPSEEK_DECODE = (2, 16)
+# deepseek's decode also in f32, at full width cut to its dense prefix and
+# three MoE layers (the f32 model at full depth, 62.8 GB, leaves no room).
+DEEPSEEK_F32 = f"{DEEPSEEK} (f32, 4 layers)"
+DEEPSEEK_F32_LAYERS = 4
+# Decode against the parallel forward: the last position's logits (an SSM
+# block's every output), max|decode - parallel| <= bound * max|parallel|.
+# Each bound sits between the clean reading and the planted fault's (an
+# H100 80GB HBM3 at 700 W): gemma3 (bf16, 1,100 tokens) 1.13e-2 against
+# 7.01e-2 with the ring slot off by one; xlstm (f32, 24 layers) 1.43e-3
+# against 1.44 with the mLSTM state dropped; jamba's SSM 7.1e-6 against
+# 0.269 with the state dropped; deepseek (bf16, 27 layers) 6.17e-2
+# against 0.647 with the latent slot off by one.  The f32 decode at 4
+# layers, held to the reference's own MoE tolerance
+# (tests/test_torch_serving.py), separates bf16 rounding from a fault of
+# the absorbed decode.
+DECODE_BOUND = {GEMMA3: 5e-2, XLSTM: 1e-2, JAMBA: 2e-3, DEEPSEEK: 0.2,
+                DEEPSEEK_F32: 5e-3}
+# gemma3's first bf16 step against an f32 step from the same bf16 values,
+# on tokens drawn from a seeded generator (lm_batch's x' = a·x + c mod V
+# collapses for an even a at a power-of-two V: one token filled 3,870 of
+# 4,096 positions): the loss and every gradient leaf within
+# BF16_STEP_BOUND in relative L2.  On an H100 80GB HBM3 at 700 W the worst
+# leaf reads 2.73e-2, the planted faults' worst leaves 1.13 (the window
+# dropped from the L layers) and 0.838 (the G layer windowed).
+BF16_STEP_BOUND = 0.1
+GEMMA3_FAULTS = ("window_dropped_from_L", "G_layer_windowed")
+XLSTM_FAULTS = ("mlstm_carry_reset", "slstm_recurrence_zeroed")
+# xlstm's first step against float64: phase 7's rule at XLSTM_F64_DEPTH
+# layers (full width, 8 x 512).  At full depth this random-weight stack is
+# ill-conditioned (phase 7's 1e-4 reads 0.148 at the worst leaf, the
+# mLSTM input-gate bias of layer 0): a float64 step from params one f32
+# rounding off already moves that leaf by 2.6e-2, and an f32 step rounds
+# every op.  So there each leaf is held within XLSTM_ULP_RATIO times the
+# farthest of XLSTM_ULP_DRAWS such float64 steps from the float64 step, or
+# LM_GRAD_RTOL.  On an H100 80GB HBM3 at 700 W the clean step reads at
+# most 7.9 times that spread (final_norm's scale), the planted faults at
+# least 7,000 times; tests/test_torch_xlstm.py holds both packages' f32
+# steps by the same rule on the CPU (at most 5.2 there).
+XLSTM_F64_DEPTH, XLSTM_ULP_DRAWS, XLSTM_ULP_RATIO = 4, 2, 16.0
+
+
+def param_gb(params):
+    from repro_torch import tree
+    return sum(x.numel() * x.element_size() for x in tree.leaves(params)) / 1e9
+
+
+def free(dev):
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def decode_reading(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def serve_phase(dev, tag, cfg, params):
+    """``ServeEngine`` at the serve CLI's defaults: SERVE['requests']
+    prompts of SERVE['prompt'] tokens from a seeded generator, each
+    answered with SERVE['tokens']; every tick timed.  Returns the median
+    tick ms."""
+    import torch
+    from repro_torch.serving.engine import GenRequest, ServeEngine
+
+    gb = param_gb(params)
+    eng = ServeEngine(cfg, params, batch_slots=SERVE["slots"],
+                      max_len=SERVE["max_len"])
+    gen = torch.Generator().manual_seed(1)
+    for rid in range(SERVE["requests"]):
+        eng.submit(GenRequest(rid, torch.randint(
+            0, cfg.vocab_size, (SERVE["prompt"],), generator=gen).tolist(),
+            max_tokens=SERVE["tokens"]))
+    torch.cuda.synchronize(dev)
+    ticks = []
+    t_run = time.perf_counter()
+    while eng.active and eng.index < eng.max_len:
+        t0 = time.perf_counter()
+        eng.step()                    # reads the next tokens: a sync
+        ticks.append((time.perf_counter() - t0) * 1e3)
+    run_s = time.perf_counter() - t_run
+    done = eng.done
+    n_tok = sum(len(v) for v in done.values())
+    med = statistics.median(ticks)
+    print(f"{tag} serving: {len(done)}/{SERVE['requests']} requests, "
+          f"{len(ticks)} ticks, {n_tok} tokens; tick ms median {med:.2f} "
+          f"(min {min(ticks):.2f}, first {ticks[0]:.1f}); {n_tok / run_s:.1f} "
+          f"tokens/s; weights {gb:.2f} GB -> tick bound {gb / 3.35:.2f} ms "
+          f"at 3.35 TB/s; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB",
+          flush=True)
+    check(len(done) == SERVE["requests"]
+          and all(len(v) == SERVE["tokens"] for v in done.values())
+          and all(0 <= t < cfg.vocab_size for v in done.values() for t in v),
+          f"{tag}: ServeEngine answered every request with "
+          f"{SERVE['tokens']} tokens in the vocabulary")
+    del eng
+    return med
+
+
+def decode_vs_parallel(tag, cfg, params, toks, plant=None):
+    """The last logits of decode_step over ``toks`` (B, T) against
+    lm_hidden -> head; returns the reading."""
+    import torch
+    from repro_torch.models import transformer as tr
+
+    b, t = toks.shape
+    with torch.inference_mode():
+        with plant() if plant else contextlib.nullcontext():
+            # one slot to spare: a planted slot fault may write past t;
+            # f32 caches and the head made once, as ServeEngine has them
+            caches = tr.init_caches(cfg, b, t + 1, torch.float32,
+                                    device=toks.device)
+            head = tr.decode_head(params, cfg)
+            for i in range(t):
+                logits, caches = tr.decode_step(params, toks[:, i], caches,
+                                                i, cfg, head=head)
+        h, _ = tr.lm_hidden(params, toks, cfg)
+        want = h[:, -1].float() @ tr.lm_head_weight(params, cfg).float()
+    del caches, head
+    return decode_reading(logits, want)
+
+
+def decode_check(tag, cfg, params, toks, fault_name, plant):
+    bound = DECODE_BOUND[tag]
+    clean = decode_vs_parallel(tag, cfg, params, toks)
+    faulted = decode_vs_parallel(tag, cfg, params, toks, plant)
+    print(f"{tag} decode_step vs the parallel forward at {tuple(toks.shape)}"
+          f": clean {clean:.3e}, {fault_name} {faulted:.3e} (bound "
+          f"{bound:g} of max|logit|)", flush=True)
+    check(clean <= bound, f"{tag}: decode within {bound:g} of the parallel "
+          f"forward")
+    check(faulted > bound, f"{tag}: the decode check rejects {fault_name}")
+
+
+def gemma3_phase(dev):
+    """gemma3-12b: served at full width and depth in bf16; then cut to one
+    period (6 layers) at full width: decode across the ring's wrap, the
+    first bf16 step against f32 with two planted window faults, three
+    AdamW steps at 1 x 4,096."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.transformer import lm_init, lm_loss
+    from repro_torch.optim.optimizer import OptConfig, adamw_init
+
+    cfg = ARCHS[GEMMA3]
+    free(dev)
+    params = lm_init(0, cfg, dtype=torch.bfloat16, device=dev)
+    print(f"{GEMMA3}: {n_params(params) / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers {cfg.pattern} (window "
+          f"{cfg.sliding_window}), bf16", flush=True)
+    tick = serve_phase(dev, GEMMA3, cfg, params)
+    del params
+    free(dev)
+
+    cfg = cfg.with_(n_layers=GEMMA3_PERIOD)
+    params = lm_init(0, cfg, dtype=torch.bfloat16, device=dev)
+    tag = f"{GEMMA3} ({GEMMA3_PERIOD} layers)"
+    toks = torch.randint(0, cfg.vocab_size, (1, GEMMA3_DECODE_T),
+                         generator=torch.Generator(device=dev).manual_seed(2),
+                         device=dev)
+
+    def slot_off_by_one():
+        return patched(attention, "ring_positions", lambda real: (
+            lambda index, s_len, window, device: (
+                lambda slot, valid: ((slot + 1) % s_len if window else slot,
+                                     valid))(*real(index, s_len, window,
+                                                   device))))
+    t0 = time.perf_counter()
+    decode_check(GEMMA3, cfg, params, toks, "ring slot off by one",
+                 slot_off_by_one)
+    print(f"{tag}: two {GEMMA3_DECODE_T}-token decodes and forwards "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def seeded_batch(seed):
+        return {"tokens": torch.randint(
+            0, cfg.vocab_size, (1, GEMMA3_TRAIN_T + 1), dtype=torch.int32,
+            generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev)}
+    batch = seeded_batch(5)
+    paths = [p for p, _ in tree.leaves_with_paths(params)]
+    counts = batch["tokens"][0, :-1].unique(return_counts=True)[1]
+    print(f"{tag}: the first batch's most frequent token fills "
+          f"{int(counts.max())} of its {GEMMA3_TRAIN_T} input positions",
+          flush=True)
+
+    def grads(p, plant=None):
+        leaves = [x.detach().requires_grad_(True) for x in tree.leaves(p)]
+        with plant() if plant else contextlib.nullcontext():
+            loss = lm_loss(tree.unflatten_like(p, leaves), batch, cfg)
+        g = torch.autograd.grad(loss, leaves)
+        return float(loss), [x.float() for x in g]
+
+    plants = {
+        "window_dropped_from_L": lambda: patched(
+            transformer, "_block_attn_cfg",
+            lambda real: lambda c, kind: c.attn_config(window=None)),
+        "G_layer_windowed": lambda: patched(
+            transformer, "_block_attn_cfg",
+            lambda real: lambda c, kind: c.attn_config(
+                window=c.sliding_window))}
+    p32 = tree.tree_map(lambda x: x.float(), params)
+    loss32, g32 = grads(p32)
+    del p32
+    free(dev)
+
+    def verdict(what, loss, g):
+        rels = [rel_l2(a, b) for a, b in zip(g, g32)]
+        order = sorted(range(len(rels)), key=rels.__getitem__, reverse=True)
+        loss_rel = abs(loss - loss32) / abs(loss32)
+        print(f"{tag} first bf16 step vs f32 [{what}]: loss {loss:.6f} vs "
+              f"{loss32:.6f} (rel {loss_rel:.2e}); worst leaves "
+              + ", ".join(f"{paths[i]} {rels[i]:.3e}" for i in order[:4]),
+              flush=True)
+        return loss_rel <= BF16_STEP_BOUND and max(rels) <= BF16_STEP_BOUND
+
+    loss16, g16 = grads(params)
+    check(verdict("clean", loss16, g16), f"{tag}: the first bf16 step "
+          f"within {BF16_STEP_BOUND} of f32 (loss, every leaf rel L2)")
+    del g16
+    for fault in GEMMA3_FAULTS:
+        loss_f, g_f = grads(params, plants[fault])
+        check(not verdict(fault, loss_f, g_f),
+              f"{tag}: the bf16-vs-f32 rule rejects {fault}")
+        del g_f
+    del g32
+    free(dev)
+
+    step_fn = make_train_step(cfg, OptConfig())
+    opt = adamw_init(params)
+    losses, ms = [], []
+    for i in range(GEMMA3_STEPS):
+        b = seeded_batch(6 + i)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, b)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{tag}: {n_params(params) / 1e9:.3f} B params, bf16 with f32 "
+          f"master and moments; {GEMMA3_STEPS} AdamW steps at 1 x "
+          f"{GEMMA3_TRAIN_T}: losses {losses}; step ms "
+          f"{[round(x, 1) for x in ms]}, median of steps 2-{GEMMA3_STEPS} "
+          f"{statistics.median(ms[1:]):.1f}; peak memory {peak:.2f} GiB",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses)
+          and params["embed"].dtype == torch.bfloat16,
+          f"{tag}: finite bf16 training losses")
+    del params, opt, step_fn
+    free(dev)
+    return tick
+
+
+def xlstm_phase(dev):
+    """xlstm-350m at full width and depth, f32: five ``train_loop`` steps with a checkpoint after three and a resume; the
+    first step against float64 with two planted faults; serving and decode
+    against the parallel forward."""
+    import shutil
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch import conditioning
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import transformer, xlstm
+    from repro_torch.models.transformer import lm_init
+
+    cfg = ARCHS[XLSTM]
+    tag = XLSTM
+    free(dev)
+    tcfg = TrainConfig(total_steps=XLSTM_STEPS, checkpoint_every=XLSTM_CUT,
+                       keep_checkpoints=2, seed=0)
+    ckdir = os.path.join(HERE, "build", "smoke_xlstm_checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    stamps = [t0]
+    out = train_loop(cfg, tcfg, batch_size=XLSTM_BATCH, seq_len=XLSTM_SEQ,
+                     steps=XLSTM_STEPS, ckpt_dir=ckdir, log_every=0,
+                     device=dev, on_metrics=lambda i, m: stamps.append(
+                         time.perf_counter()))
+    losses_a = out["losses"]
+    size = n_params(out["params"])
+    del out
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # between metric reads (each a sync); the interval after step 3 holds
+    # its checkpoint save
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    print(f"{tag}: {size / 1e6:.1f} M params, {cfg.n_layers} layers "
+          f"{cfg.pattern}, f32; train_loop {XLSTM_STEPS} steps at "
+          f"{XLSTM_BATCH} x {XLSTM_SEQ}: losses {losses_a}; step ms "
+          f"{[round(x, 1) for x in ms]}, median of steps 2-{XLSTM_STEPS} "
+          f"{statistics.median(ms[1:]):.1f}; peak memory {peak:.2f} GiB; "
+          f"run with its saves {time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(os.path.join(ckdir, f"step_{XLSTM_STEPS:08d}"))
+    saves = []
+    free(dev)
+    with final_save_counted(saves):
+        out = train_loop(cfg, tcfg, batch_size=XLSTM_BATCH,
+                         seq_len=XLSTM_SEQ, steps=XLSTM_STEPS,
+                         ckpt_dir=ckdir, log_every=0, device=dev)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    check(out["resumed_from"] == XLSTM_CUT
+          and out["losses"] == losses_a[XLSTM_CUT:]
+          and all(math.isfinite(x) for x in losses_a),
+          f"{tag}: resumed from step {out['resumed_from']}, losses "
+          f"{out['losses']} bit-equal to the uninterrupted run's")
+    del out
+    free(dev)
+
+    def carry_reset(real):
+        def chunk(carry, *a):
+            c, n, m = carry
+            return real((torch.zeros_like(c), torch.zeros_like(n),
+                         torch.full_like(m, xlstm.NEG_INIT)), *a)
+        return chunk
+    plants = {"mlstm_carry_reset": lambda: patched(
+                  xlstm, "_mlstm_chunk", carry_reset),
+              "slstm_recurrence_zeroed": lambda: patched(
+                  xlstm, "_recurrent", lambda real: lambda p: real(p) * 0)}
+    batch = lm_batch(0, 0, batch=XLSTM_BATCH, seq_len=XLSTM_SEQ,
+                     vocab=cfg.vocab_size, device=dev)
+
+    def ulp_bounds(sub, c, params, g64, paths):
+        """Per leaf, XLSTM_ULP_RATIO times the farthest that a float64 step
+        from params each moved by one f32 rounding
+        (``conditioning.rounding_spreads``) lies from the float64 step, or
+        LM_GRAD_RTOL."""
+        spread = [max(s) for s in zip(*conditioning.rounding_spreads(
+            c, params, batch, g64, XLSTM_ULP_DRAWS))]
+        order = sorted(range(len(spread)), key=spread.__getitem__,
+                       reverse=True)
+        print(f"{sub}: float64 steps from params one f32 rounding off "
+              f"({XLSTM_ULP_DRAWS} draws), farthest leaves "
+              + ", ".join(f"{paths[i]} rel L2 {spread[i]:.2e}"
+                          for i in order[:3]), flush=True)
+        return [max(LM_GRAD_RTOL, XLSTM_ULP_RATIO * x) for x in spread]
+
+    for depth in (XLSTM_F64_DEPTH, cfg.n_layers):
+        c = cfg.with_(n_layers=depth)
+        sub = f"{tag} ({depth} layers)"
+        params = lm_init(0, c, dtype=torch.float32, device=dev)
+        paths = [p for p, _ in tree.leaves_with_paths(params)]
+        t0 = time.perf_counter()
+        loss32, g32 = lm_grads(c, params, batch, torch.float32)
+        t32 = time.perf_counter() - t0
+        loss64, g64 = lm_grads(c, params, batch, torch.float64)
+        print(f"{sub}: first step forward + backward {t32 * 1e3:.0f} ms "
+              f"(f32), {(time.perf_counter() - t0 - t32) * 1e3:.0f} ms "
+              f"(float64)", flush=True)
+        if depth == XLSTM_F64_DEPTH:
+            rtol, rule = LM_GRAD_RTOL, f"{LM_GRAD_RTOL:g}"
+        else:
+            rtol = ulp_bounds(sub, c, params, g64, paths)
+            rule = (f"{XLSTM_ULP_RATIO:g} x that float64 spread, or "
+                    f"{LM_GRAD_RTOL:g}")
+        check(f64_verdict(sub, "clean", paths, loss32, g32, loss64, g64,
+                          rtol),
+              f"{sub} first step within {LM_LOSS_RTOL} (loss) and {rule} "
+              f"(every gradient leaf, relative L2) of float64")
+        del g32
+        faults_fail(sub, XLSTM_FAULTS, lambda f: lm_grads(
+            c, params, batch, torch.float32, plants[f]()), paths, loss64,
+            g64, rtol)
+        del g64
+        free(dev)
+
+    tick = serve_phase(dev, tag, cfg, params)
+    b, t = XLSTM_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (b, t),
+                         generator=torch.Generator(device=dev).manual_seed(3),
+                         device=dev)
+
+    def state_dropped():
+        real = xlstm.mlstm_decode
+
+        def dec(p, x, cache, c):
+            for k, v in xlstm.mlstm_init_cache(c, x.shape[0],
+                                               x.device).items():
+                cache[k].copy_(v)
+            return real(p, x, cache, c)
+        return patched(transformer, "mlstm_decode", lambda r: dec)
+    decode_check(XLSTM, cfg, params, toks, "mLSTM state not carried",
+                 state_dropped)
+    del params
+    free(dev)
+    return tick
+
+
+def jamba_phase(dev):
+    """jamba-1.5-large's layer 0 (Mamba + its dense SiLU-GLU FFN) at full
+    width as a unit: forward and backward against float64 with the chunk
+    carry reset planted; ``ssm_decode`` against ``ssm_apply`` with the
+    state not carried planted."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import common, ssm
+    from repro_torch.models.transformer import block_apply, block_init
+
+    cfg = ARCHS[JAMBA]
+    tag = f"{JAMBA} layer 0 (M + FFN)"
+    kind = cfg.layer_kinds()[0]
+    assert kind == "M" and not cfg.layer_uses_moe(0)
+    free(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = block_init(gen, cfg, kind, False, dtype=torch.float32)
+    x = torch.randn((1, JAMBA_T, cfg.d_model), generator=gen, device=dev)
+    r = torch.randn((1, JAMBA_T, cfg.d_model), generator=gen, device=dev)
+    paths = ["x"] + [q for q, _ in tree.leaves_with_paths(p)]
+    scfg = cfg.ssm_config()
+    print(f"{tag}: {n_params(p) / 1e9:.3f} B params; d_inner "
+          f"{scfg.d_inner}, d_state {scfg.d_state}, dt_rank {scfg.rank}, "
+          f"chunk {scfg.chunk}; d_ff {cfg.d_ff}; 1 x {JAMBA_T}", flush=True)
+
+    def run(dtype, plant=None, timed=False):
+        leaves = [t.detach().to(dtype).requires_grad_(True)
+                  for t in [x] + tree.leaves(p)]
+        with contextlib.ExitStack() as st:
+            st.enter_context(common.upcast(dtype))
+            if plant:
+                st.enter_context(plant())
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            y, _ = block_apply(tree.unflatten_like(p, leaves[1:]), leaves[0],
+                               cfg, kind, False)
+            loss = (y * r.to(dtype)).sum()
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            g = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+        if timed:
+            print(f"{tag}: forward {(t1 - t0) * 1e3:.1f} ms, backward (with "
+                  f"the chunks recomputed) {(t2 - t1) * 1e3:.1f} ms, peak "
+                  f"memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f}"
+                  f" GiB", flush=True)
+        return float(loss), g
+
+    run(torch.float32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss32, g32 = run(torch.float32, timed=True)
+    loss64, g64 = run(torch.float64)
+    check(f64_verdict(tag, "clean", paths, loss32, g32, loss64, g64),
+          f"{tag}: forward and backward within {LM_LOSS_RTOL} and "
+          f"{LM_GRAD_RTOL} (every leaf and dx, relative L2) of float64")
+    del g32
+
+    def reset(real):
+        return lambda h0, *a: real(torch.zeros_like(h0), *a)
+    faults_fail(tag, ("chunk_carry_reset",), lambda f: run(
+        torch.float32, lambda: patched(ssm, "_chunk_body", reset)),
+        paths, loss64, g64)
+    del g64
+    free(dev)
+
+    sp = p["ssm"]
+    xs = x[:, :JAMBA_DECODE_T]
+
+    def decode(plant=False):
+        with torch.inference_mode():
+            cache = ssm.ssm_init_cache(scfg, 1, torch.float32, dev)
+            ys = []
+            for i in range(JAMBA_DECODE_T):
+                if plant:
+                    cache["h"].zero_()
+                y, cache = ssm.ssm_decode(sp, xs[:, i:i + 1], cache, scfg)
+                ys.append(y)
+            return torch.cat(ys, dim=1)
+    with torch.inference_mode():
+        want = ssm.ssm_apply(sp, xs, scfg)
+    clean, faulted = decode_reading(decode(), want), \
+        decode_reading(decode(True), want)
+    bound = DECODE_BOUND[JAMBA]
+    print(f"{JAMBA} ssm_decode vs ssm_apply at 1 x {JAMBA_DECODE_T} (every "
+          f"output): clean {clean:.3e}, state not carried {faulted:.3e} "
+          f"(bound {bound:g} of max|y|)", flush=True)
+    check(clean <= bound, f"{JAMBA}: ssm_decode within {bound:g} of "
+          f"ssm_apply")
+    check(faulted > bound, f"{JAMBA}: the decode check rejects the state "
+          f"not carried")
+    del p, sp, x, r, xs, want
+    free(dev)
+
+
+def deepseek_serve_phase(dev):
+    """deepseek-v2-lite-16b at full width and depth in bf16: served, and
+    decode (MLA's absorbed form over the latent cache) against the
+    parallel forward with the capacity raised so no pair drops; that
+    decode again at 4 layers, in bf16 (a reading) and in f32."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import lm_init
+
+    cfg = ARCHS[DEEPSEEK]
+    free(dev)
+    params = lm_init(0, cfg, dtype=torch.bfloat16, device=dev)
+    print(f"{DEEPSEEK}: {n_params(params) / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers (MLA, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} + {cfg.moe.n_shared_experts} shared), bf16",
+          flush=True)
+    tick = serve_phase(dev, DEEPSEEK, cfg, params)
+    wide = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=64.0))
+    b, t = DEEPSEEK_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (b, t),
+                         generator=torch.Generator(device=dev).manual_seed(4),
+                         device=dev)
+
+    def latent_slot_off_by_one():
+        def mla(real):
+            return lambda p, x, cache, index, c: real(p, x, cache,
+                                                      index + 1, c)
+        return patched(attention, "_mla_decode", mla)
+    decode_check(DEEPSEEK, wide, params, toks, "latent slot off by one",
+                 latent_slot_off_by_one)
+    del params
+    free(dev)
+    cut = wide.with_(n_layers=DEEPSEEK_F32_LAYERS)
+    for dtype in (torch.bfloat16, torch.float32):
+        params = lm_init(0, cut, dtype=dtype, device=dev)
+        if dtype == torch.float32:
+            decode_check(DEEPSEEK_F32, cut, params, toks,
+                         "latent slot off by one", latent_slot_off_by_one)
+        else:
+            print(f"{DEEPSEEK} (bf16, {DEEPSEEK_F32_LAYERS} layers) "
+                  f"decode_step vs the parallel forward: "
+                  f"{decode_vs_parallel(DEEPSEEK, cut, params, toks):.3e}",
+                  flush=True)
+        del params
+        free(dev)
+    return tick
+
+
+def serve_cli_phase():
+    """``python -m repro_torch.launch.serve`` at its defaults, on the
+    card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": SRC})
+    last = proc.stdout.strip().splitlines()[-1:] or [proc.stderr[-400:]]
+    print(f"launch.serve CLI: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s: {last[0]}", flush=True)
+    check(proc.returncode == 0 and "served 8/8 requests" in last[0]
+          and "on cuda" in last[0],
+          "python -m repro_torch.launch.serve answered 8/8 on the card")
+
+
+def slice9_phase(dev):
+    """Phase 9: gemma3, xlstm, jamba's layer 0, deepseek served, the
+    CLI.  Returns each path's launches of the port's kernels (none)."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    by_path = {}
+    for name, fn in (("lm_gemma3", gemma3_phase), ("lm_xlstm", xlstm_phase),
+                     ("lm_jamba_layer0", jamba_phase),
+                     ("lm_deepseek_serve", deepseek_serve_phase)):
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        fn(dev)
+        by_path[name] = kernels.launch_counts()
+        print(f"phase 9 {name}: {time.perf_counter() - t1:.1f} s", flush=True)
+        check(sum(by_path[name].values()) == 0,
+              f"{name}: launches none of the sparse kernels")
+    serve_cli_phase()
+    print(f"phase 9 (windows, Mamba, xLSTM, bf16, serving): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
 def main():
     try:
         import torch
@@ -2632,6 +3257,7 @@ def main():
     by_path.update(experiment_phase(dev))
     by_path.update(guarded_lm_phase(dev))
     by_path.update(lm_families_phase(dev))
+    by_path.update(slice9_phase(dev))
 
     mm_cu = "src/repro_torch/csrc/masked_matmul.cu"
     mm_py = "src/repro/kernels/masked_matmul.py"

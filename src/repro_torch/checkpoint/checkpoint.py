@@ -11,7 +11,10 @@ Layout (the reference's, byte for byte in meaning):
                                     cache + guard state)
 
 so a checkpoint written by either package restores in the other.  Leaves
-are saved as full host copies of their values.
+are saved as full host copies of their values.  A bf16 leaf is written as
+the reference writes it, raw ``|V2`` records; the port restores such a
+file from either package bit for bit (the reference's own restore cannot
+cast ``|V2`` back to bf16: ROADMAP Queue C).
 
 Commit protocol: payload files are written into ``step_X.tmp`` and
 fsync'd, then the tmp dir; ``os.rename(tmp, final)`` is the commit point
@@ -29,6 +32,7 @@ import json
 import os
 import re
 import shutil
+import zipfile
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -91,14 +95,45 @@ def _fsync(p: str) -> None:
         os.close(fd)
 
 
+# A bf16 leaf on disk: the reference's ``np.savez`` of an ``ml_dtypes``
+# bfloat16 array writes raw 2-byte void records under the descr ``<V2``
+# (numpy's own void dtype would say ``|V2``); the port writes the same
+# header and bits, and reads 2-byte void records back as bf16.
+_BF16_DISK = np.dtype("V2")
+_BF16_DESCR = "<V2"
+
+
+def _savez(path: str, flat: dict) -> None:
+    """``np.savez(path, **flat)``, with a bf16 leaf's header written as the
+    reference's."""
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in flat.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if arr.dtype != _BF16_DISK:
+                    np.lib.format.write_array(f, arr)
+                    continue
+                header = np.lib.format.header_data_from_array_1_0(arr)
+                header["descr"] = _BF16_DESCR
+                np.lib.format.write_array_header_1_0(f, header)
+                f.write(np.ascontiguousarray(arr).tobytes())
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "bf16 leaves: the LM's bf16 paths are ROADMAP A16c")
+            return t.view(torch.int16).numpy().view(_BF16_DISK)
         return t.numpy()
     return np.asarray(leaf)
+
+
+def _tensor(got: np.ndarray) -> torch.Tensor:
+    """A loaded array as a tensor: ``|V2`` records as bf16 bits."""
+    if got.dtype == _BF16_DISK:
+        return torch.from_numpy(np.array(got).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(got))
 
 
 def _flatten(tree) -> Tuple[dict, list]:
@@ -120,7 +155,7 @@ def save(path: str, step: int, tree: Any, *, keep: int = 3,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     flat, paths = _flatten(tree)
-    np.savez(os.path.join(tmp, "leaves.npz"), **flat)
+    _savez(os.path.join(tmp, "leaves.npz"), flat)
     _fsync(os.path.join(tmp, "leaves.npz"))
     _crash_point("checkpoint:post_leaves")
     with open(os.path.join(tmp, "treedef.json"), "w") as f:
@@ -204,8 +239,8 @@ def _load_step(path: str, step: int, template: Any) -> Any:
                 f"shape mismatch: checkpoint {got.shape} vs template "
                 f"{tuple(want.shape)}", step=step, leaf=key)
         if isinstance(want, torch.Tensor):
-            out.append(torch.from_numpy(np.array(got)).to(
-                device=want.device, dtype=want.dtype))
+            out.append(_tensor(got).to(device=want.device,
+                                       dtype=want.dtype))
         else:
             out.append(np.asarray(got, dtype=np.asarray(want).dtype))
     return _tree.unflatten_like(template, out)

@@ -1,5 +1,5 @@
-"""The training step factory — the port of ``repro.launch.steps``'s
-``make_train_step``.  Prefill and decode wait for ROADMAP A17.
+"""Step-function factories: train / prefill / decode — the port of
+``repro.launch.steps``.
 """
 from __future__ import annotations
 
@@ -9,7 +9,10 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.kernels import stats
-from repro_torch.models.transformer import lm_loss
+from repro_torch.models.transformer import decode_step as _decode_step
+from repro_torch.models.transformer import (decode_head, encode,
+                                            lm_head_weight, lm_hidden,
+                                            lm_loss)
 from repro_torch.optim.optimizer import OptConfig, adamw_update
 
 
@@ -66,3 +69,38 @@ def make_train_step(cfg, opt_cfg: OptConfig, *, microbatches: int = 1):
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg):
+    """(params, batch) -> last-position f32 logits (B, V) of the trunk
+    over ``batch["tokens"][:, :-1]`` (an enc-dec model encodes
+    ``frontend_embeds`` into the memory first, a frontend model prepends
+    them).  Runs without autograd; writing the caches out is the decode
+    path's concern, as in the reference."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        memory = None
+        fe = batch.get("frontend_embeds")
+        if cfg.enc_dec:
+            memory = encode(params, fe, cfg)
+            fe = None
+        h, _ = lm_hidden(params, batch["tokens"][:, :-1], cfg,
+                         frontend_embeds=fe, memory=memory)
+        up = torch.float32
+        return h[:, -1].to(up) @ lm_head_weight(params, cfg).to(up)
+
+    return prefill_step
+
+
+def make_decode_step(cfg):
+    """(params, token, caches, index[, memory]) -> (logits, caches), the
+    caches updated in place; the f32 head is made on every call, as the
+    reference's step upcasts it (the serving engine makes it once)."""
+
+    @torch.inference_mode()
+    def decode(params, token, caches, index, memory=None):
+        return _decode_step(params, token, caches, index, cfg,
+                            memory=memory, head=decode_head(params, cfg))
+
+    return decode

@@ -1,20 +1,29 @@
-"""Attention: GQA with RoPE, MLA (DeepSeek-V2) and cross-attention over
-blockwise (flash-style) attention — the port of the training paths of
-``repro.models.attention``.
+"""Attention: GQA with RoPE and sliding windows, MLA (DeepSeek-V2) and
+cross-attention — the port of ``repro.models.attention``, training and
+cached-decode paths.
 
-Plain PyTorch, in the reference's chunk order: each q chunk runs an online
-softmax over the kv chunks, so the (T × T) score matrix is never
-materialized at once.  It is XLA code in the JAX package, not a Pallas
-kernel.  Sliding windows wait for ROADMAP A16c and raise
-``NotImplementedError``; the cached decode paths (``attn_decode``,
-``_mla_decode``) wait for A17.
+Training attention is plain PyTorch in the reference's chunk order: each q
+chunk runs an online softmax over the kv chunks, so the (T × T) score
+matrix is never materialized at once.  A window masks keys more than
+``window - 1`` positions back; ``rect`` still scans every kv chunk, as the
+reference does.  It is XLA code in the JAX package, not a Pallas kernel.
+
+Decode updates its cache IN PLACE (the reference's is functional): one
+token's keys and values are written at their slot, with no copy of the
+cache per tick.  A windowed layer's cache is a ring buffer of
+``min(max_len, window)`` slots.  MLA caches the ``kv_lora_rank`` latent
+and the shared RoPE key, and decodes in the absorbed-projection form (q
+projected into the latent space), so a tick costs O(S·(r + d_rope)) per
+head.  Scores and values are f32 products of the cache's values, as in the
+reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .common import apply_rope, dense_init, upcast_dtype
 
@@ -43,16 +52,10 @@ class AttnConfig:
     unroll: int = 1                       # kv-chunk scan unrolling (JAX)
 
 
-def _unported(cfg: AttnConfig) -> None:
-    if cfg.window is not None:
-        raise NotImplementedError("sliding-window attention: ROADMAP A16c")
-
-
 def attn_init(gen: torch.Generator, cfg: AttnConfig,
               dtype=torch.float32) -> Params:
     """wq, wk, wv, wo (MLA: wq, wdkv, wkr, wuk, wuv, wo) drawn from ``gen``
     on its device."""
-    _unported(cfg)
     if cfg.use_mla:
         qd = cfg.qk_nope_dim + cfg.qk_rope_dim
         h = cfg.n_heads
@@ -75,11 +78,11 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig,
     }
 
 
-def _chunk_attn_step(q, k, v, qpos, kpos, *, causal, window, scale):
-    """One (q-chunk × kv-chunk) tile: (max, sum of exp, partial output).
+def _chunk_attn_step(q, k, v, qpos, kpos, *, causal, window, scale, up):
+    """One (q-chunk × kv-chunk) tile: (max, sum of exp, partial output),
+    computed in ``up``.
 
     q: (B, Tq, Hk, G, D); k/v: (B, Tk, Hk, D)."""
-    up = upcast_dtype()
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(up), k.to(up)) * scale
     # padded keys carry kpos = 2**30 and never attend
     mask = (kpos < 2 ** 29)[None, :].expand(q.shape[1], k.shape[1])
@@ -96,6 +99,32 @@ def _chunk_attn_step(q, k, v, qpos, kpos, *, causal, window, scale):
     return m, l, o
 
 
+def _one_q_chunk(qi, k, v, qpos, kpos_all, n_kv, kv_chunk, causal, window,
+                 scale, up):
+    """Online softmax of one q chunk over the first ``n_kv`` kv chunks:
+    (B, Hk, G, Tq, Dv) in ``up`` (passed in, not read from
+    ``upcast_dtype()``, so that a recomputation in the backward pass runs
+    in the forward's dtype)."""
+    b, tq, hk, g, _ = qi.shape
+    dv = v.shape[-1]
+    dev = qi.device
+    m_acc = torch.full((b, hk, g, tq), NEG_INF, dtype=up, device=dev)
+    l_acc = torch.zeros((b, hk, g, tq), dtype=up, device=dev)
+    o_acc = torch.zeros((b, hk, g, tq, dv), dtype=up, device=dev)
+    for j in range(n_kv):
+        sl = slice(j * kv_chunk, (j + 1) * kv_chunk)
+        m, l, o = _chunk_attn_step(qi, k[:, sl], v[:, sl], qpos,
+                                   kpos_all[sl], causal=causal,
+                                   window=window, scale=scale, up=up)
+        m_new = torch.maximum(m_acc, m)
+        c1 = torch.exp(m_acc - m_new)
+        c2 = torch.exp(m - m_new)
+        l_acc = l_acc * c1 + l * c2
+        o_acc = o_acc * c1[..., None] + o * c2[..., None]
+        m_acc = m_new
+    return o_acc / torch.clamp(l_acc[..., None], min=1e-30)
+
+
 def blockwise_attention(
     q: torch.Tensor,               # (B, T, Hq, D)
     k: torch.Tensor,               # (B, S, Hk, D)
@@ -110,8 +139,11 @@ def blockwise_attention(
 ) -> torch.Tensor:
     """Online-softmax attention over q/kv chunks (the reference's order:
     for each q chunk, kv chunks in order, ``rect`` scanning all of them,
-    ``tri`` only the causal prefix).  Returns (B, T, Hq, Dv) in v's
-    dtype."""
+    ``tri`` only the causal prefix).  Each q chunk is recomputed in the
+    backward pass (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``): otherwise every (q, kv) tile's scores stay alive,
+    ~5 GB a layer for gemma3-12b at 4,096 positions.  Returns (B, T, Hq,
+    Dv) in v's dtype."""
     b, t, hq, d = q.shape
     _, s, hk, dv = v.shape
     g = hq // hk
@@ -141,23 +173,12 @@ def blockwise_attention(
             n_kv = min(nk, -(-((i + 1) * q_chunk) // kv_chunk))
         else:
             n_kv = nk
-        up = upcast_dtype()
-        m_acc = torch.full((b, hk, g, q_chunk), NEG_INF, dtype=up,
-                           device=dev)
-        l_acc = torch.zeros((b, hk, g, q_chunk), dtype=up, device=dev)
-        o_acc = torch.zeros((b, hk, g, q_chunk, dv), dtype=up, device=dev)
-        for j in range(n_kv):
-            sl = slice(j * kv_chunk, (j + 1) * kv_chunk)
-            m, l, o = _chunk_attn_step(qi, k[:, sl], v[:, sl], qpos,
-                                       kpos_all[sl], causal=causal,
-                                       window=window, scale=scale)
-            m_new = torch.maximum(m_acc, m)
-            c1 = torch.exp(m_acc - m_new)
-            c2 = torch.exp(m - m_new)
-            l_acc = l_acc * c1 + l * c2
-            o_acc = o_acc * c1[..., None] + o * c2[..., None]
-            m_acc = m_new
-        outs.append(o_acc / torch.clamp(l_acc[..., None], min=1e-30))
+        args = (qi, k, v, qpos, kpos_all, n_kv, kv_chunk, causal, window,
+                scale, upcast_dtype())
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(_one_q_chunk, *args, use_reentrant=False))
+        else:
+            outs.append(_one_q_chunk(*args))
     out = torch.cat(outs, dim=3)                          # (B,Hk,G,Tp,Dv)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, tp, hq, dv)
     return out[:, :t].to(v.dtype)
@@ -167,7 +188,6 @@ def attn_apply(params: Params, x: torch.Tensor, cfg: AttnConfig,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GQA (or MLA) self-attention with RoPE, causal (the training
     path)."""
-    _unported(cfg)
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)
@@ -233,3 +253,100 @@ def cross_attn_apply(params: Params, x: torch.Tensor, memory: torch.Tensor,
     o = blockwise_attention(q, k, v, causal=False,
                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     return o.reshape(b, t, -1) @ params["wo"]
+
+
+def init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,
+               device) -> Params:
+    """Zeroed decode cache: MLA's latent ``c_kv`` and ``k_rope``
+    (B, max_len, ·); else ``k``/``v`` (B, S, Hk, D) with S = ``max_len``,
+    or ``min(max_len, window)`` for a windowed layer's ring buffer."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.use_mla:
+        return {"c_kv": z(batch, max_len, cfg.kv_lora_rank),
+                "k_rope": z(batch, max_len, cfg.qk_rope_dim)}
+    length = min(max_len, cfg.window) if cfg.window else max_len
+    return {"k": z(batch, length, cfg.n_kv_heads, cfg.head_dim),
+            "v": z(batch, length, cfg.n_kv_heads, cfg.head_dim)}
+
+
+def ring_positions(index: int, s_len: int, window: Optional[int],
+                   device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot, valid) at decode position ``index``: the slot the token is
+    written to, and which of the ``s_len`` cache slots it may attend to.
+    A windowed cache is a ring buffer: slot ``j`` holds the newest
+    position ≡ j (mod s_len) that is ≤ index, and a key more than
+    ``window - 1`` positions back is masked."""
+    kpos = torch.arange(s_len, device=device)
+    if not window:
+        return index, kpos <= index
+    wrap = (index // s_len) * s_len
+    kpos = torch.where(kpos <= index % s_len, wrap + kpos,
+                       wrap - s_len + kpos)
+    valid = (kpos <= index) & (kpos >= 0) & (index - kpos < window)
+    return index % s_len, valid
+
+
+def attn_decode(params: Params, x: torch.Tensor, cache: Params, index: int,
+                cfg: AttnConfig) -> Tuple[torch.Tensor, Params]:
+    """One-token decode at position ``index`` (a Python int shared by the
+    batch).  x: (B, 1, d).  Writes the token's key and value into
+    ``cache`` in place and returns (output (B, 1, d), cache)."""
+    if cfg.use_mla:
+        return _mla_decode(params, x, cache, index, cfg)
+    b = x.shape[0]
+    pos = torch.full((1,), index, device=x.device)
+    q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    k = (x @ params["wk"]).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ params["wv"]).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    slot, valid = ring_positions(index, ck.shape[1], cfg.window, x.device)
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    up = upcast_dtype()
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, 1, cfg.n_kv_heads, g, cfg.head_dim)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(up),
+                     ck.to(up)) * cfg.head_dim ** -0.5
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.to(up))
+    o = o.reshape(b, 1, -1).to(x.dtype)
+    return o @ params["wo"], cache
+
+
+def _mla_decode(params: Params, x: torch.Tensor, cache: Params, index: int,
+                cfg: AttnConfig) -> Tuple[torch.Tensor, Params]:
+    """Absorbed-projection MLA decode: W_uk folded into the query and W_uv
+    applied after the softmax, so scores and values stay in the latent
+    space of the cache."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    pos = torch.full((1,), index, device=x.device)
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    q = (x @ params["wq"]).reshape(b, 1, h, qd)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    c_new = x @ params["wdkv"]                             # (B,1,r)
+    kr_new = apply_rope((x @ params["wkr"])[:, :, None, :], pos,
+                        cfg.rope_theta)[:, :, 0, :]        # (B,1,dr)
+    ckv, ckr = cache["c_kv"], cache["k_rope"]
+    ckv[:, index] = c_new[:, 0].to(ckv.dtype)
+    ckr[:, index] = kr_new[:, 0].to(ckr.dtype)
+    up = upcast_dtype()
+    wuk = params["wuk"].reshape(cfg.kv_lora_rank, h, cfg.qk_nope_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.to(up), wuk.to(up))
+    valid = torch.arange(ckv.shape[1], device=x.device) <= index
+    ckv_up = ckv.to(up)
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_up)
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.to(up), ckr.to(up))
+              ) * (qd ** -0.5)
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", p, ckv_up)
+    wuv = params["wuv"].reshape(cfg.kv_lora_rank, h, cfg.v_head_dim)
+    o = torch.einsum("bqhr,rhd->bqhd", o_lat, wuv.to(up))
+    o = o.reshape(b, 1, -1).to(x.dtype)
+    return o @ params["wo"], cache

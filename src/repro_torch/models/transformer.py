@@ -1,5 +1,5 @@
-"""Decoder LM / encoder-decoder assembly — the port of the training paths
-of ``repro.models.transformer``.
+"""Decoder LM / encoder-decoder assembly — the port of
+``repro.models.transformer``: training, prefill and cached decode.
 
 The param tree is the reference's: the decoder stack is grouped into
 repeating periods (``cfg.pattern``) and each position's params are stacked
@@ -12,15 +12,24 @@ reference scans over periods, the port loops over the leading axis in
 Python (each stacked leaf is unbound once, so its gradient is one stack in
 the backward pass).
 
+Layer kinds: ``A``/``G`` global attention + FFN, ``L`` sliding-window
+attention + FFN, ``M`` Mamba + FFN (or MoE), ``m``/``s`` self-contained
+mLSTM/sLSTM blocks (no FFN).  Params may be f32 or bf16 (``cfg.dtype``'s
+default); norms, attention scores, the recurrences and the loss compute in
+f32 (``common.upcast_dtype``).
+
 ``remat`` is not applied, to the periods or to the encoder's layers: at
 the sizes the port trains recomputing the forward would only cost time,
 and a recomputed sparse FFN would count ``encode:act`` twice (ROADMAP
-Queue C).  The sharding ``constraint`` calls are no-ops on one device and
-are left out.
+Queue C).  The Mamba chunk body is the exception (``models/ssm.py``).
+The sharding ``constraint`` calls are no-ops on one device and are left
+out.
 
-Not ported, and raising ``NotImplementedError`` naming ROADMAP A16c:
-sliding-window layers (kind ``L``), Mamba (``M``), xLSTM (``m``/``s``) and
-the LM's bf16 paths; decode and prefill wait for A17.
+Decode (``init_caches``, ``decode_step``): the caches are real per-period
+tensors (the reference broadcasts one cache over the periods), updated in
+place at each token's slot, so a tick copies no cache.  ``decode_step``
+takes the f32 head (``decode_head``) from its caller, which may make it
+once.
 """
 from __future__ import annotations
 
@@ -30,24 +39,21 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.device import resolve_device
+from repro_torch.kernels import stats
 
-from .attention import (attn_apply, attn_init, blockwise_attention,
-                        cross_attn_apply, cross_attn_init)
+from .attention import (attn_apply, attn_decode, attn_init,
+                        blockwise_attention, cross_attn_apply,
+                        cross_attn_init)
+from .attention import init_cache as attn_init_cache
 from .common import (apply_rope, dense_init, dtype_of, embed_init, make_norm,
                      upcast_dtype)
 from .ffn import ffn_apply, ffn_params
 from .moe import moe_apply, moe_init
+from .ssm import ssm_apply, ssm_decode, ssm_init, ssm_init_cache
+from .xlstm import (mlstm_apply, mlstm_decode, mlstm_init, mlstm_init_cache,
+                    slstm_apply, slstm_decode, slstm_init, slstm_init_cache)
 
 Params = Dict[str, Any]
-
-
-def _check_supported(cfg) -> None:
-    kinds = set(cfg.pattern) | (set(cfg.enc_pattern) if cfg.enc_dec
-                                else set())
-    bad = sorted(kinds - set("AG"))
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {bad} not ported (ROADMAP A16c)")
 
 
 def _norm_init(cfg, dtype, dev) -> Params:
@@ -55,15 +61,31 @@ def _norm_init(cfg, dtype, dev) -> Params:
     return _tree.tree_map(lambda t: t.to(dev), ninit(cfg.d_model, dtype))
 
 
+def _block_attn_cfg(cfg, kind: str):
+    """The attention config of a block of ``kind``: windowed for ``L``."""
+    window = cfg.sliding_window if kind == "L" else None
+    return cfg.attn_config(window=window)
+
+
 def block_init(gen: torch.Generator, cfg, kind: str, use_moe: bool = False,
                *, cross: bool = False, dtype=torch.float32) -> Params:
-    """One block of kind ``A``/``G``: norms, attention, cross-attention
-    (``cross``), and an FFN or MoE, drawn from ``gen`` on its device."""
-    if kind not in "AG":
-        raise NotImplementedError(f"layer kind {kind!r}: ROADMAP A16c")
+    """One block of ``kind`` drawn from ``gen`` on its device: norms, its
+    mixer (attention, Mamba, mLSTM or sLSTM), cross-attention (``cross``),
+    and an FFN or MoE (none for ``m``/``s``)."""
     dev = gen.device
     p: Params = {"norm1": _norm_init(cfg, dtype, dev)}
-    p["attn"] = attn_init(gen, cfg.attn_config(), dtype)
+    if kind in "ALG":
+        p["attn"] = attn_init(gen, _block_attn_cfg(cfg, kind), dtype)
+    elif kind == "M":
+        p["ssm"] = ssm_init(gen, cfg.ssm_config(), dtype)
+    elif kind == "m":
+        p["mlstm"] = mlstm_init(gen, cfg.xlstm_config(), dtype)
+        return p
+    elif kind == "s":
+        p["slstm"] = slstm_init(gen, cfg.xlstm_config(), dtype)
+        return p
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
     if cross:
         p["norm_x"] = _norm_init(cfg, dtype, dev)
         p["cross"] = cross_attn_init(gen, cfg.attn_config(), cfg.d_model,
@@ -99,14 +121,35 @@ def block_apply(p: Params, x: torch.Tensor, cfg, kind: str,
     ``memory`` feeds the cross-attention of a block that has one."""
     _, norm = make_norm(cfg.norm)
     aux = torch.zeros((), dtype=upcast_dtype(), device=x.device)
-    acfg = cfg.attn_config()
     h = norm(p["norm1"], x)
-    h = attn_apply(p["attn"], h, acfg) if causal \
-        else _encoder_attn(p["attn"], h, acfg)
-    x = x + h
+    if kind in "ALG":
+        acfg = _block_attn_cfg(cfg, kind)
+        h = attn_apply(p["attn"], h, acfg) if causal \
+            else _encoder_attn(p["attn"], h, acfg)
+    elif kind == "M":
+        with stats.layer_scope("ssm"):
+            h = ssm_apply(p["ssm"], h, cfg.ssm_config())
+    elif kind == "m":
+        with stats.layer_scope("mlstm"):
+            return x + mlstm_apply(p["mlstm"], h, cfg.xlstm_config()), aux
+    elif kind == "s":
+        with stats.layer_scope("slstm"):
+            return x + slstm_apply(p["slstm"], h, cfg.xlstm_config()), aux
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    return _block_tail(p, x + h, cfg, use_moe, memory)
+
+
+def _block_tail(p: Params, x: torch.Tensor, cfg, use_moe: bool,
+                memory: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """After the mixer's residual: cross-attention over ``memory`` (if the
+    block has one), then the FFN or MoE; returns (x, moe_aux)."""
+    _, norm = make_norm(cfg.norm)
+    aux = torch.zeros((), dtype=upcast_dtype(), device=x.device)
     if memory is not None and "cross" in p:
         h = norm(p["norm_x"], x)
-        x = x + cross_attn_apply(p["cross"], h, memory, acfg)
+        x = x + cross_attn_apply(p["cross"], h, memory, cfg.attn_config())
     h = norm(p["norm2"], x)
     if use_moe:
         h, aux = moe_apply(p["moe"], h, cfg.moe)
@@ -142,12 +185,11 @@ def lm_init(seed: int, cfg, *, dtype=None, device="cuda") -> Params:
     ``torch.Generator`` seeded with ``seed`` on ``device`` (default CUDA;
     raises without one unless ``device="cpu"``).  PyTorch cannot reproduce
     ``jax.random``'s bits: cross-checks carry the reference's params over
-    with ``params_from_jax``."""
-    _check_supported(cfg)
+    with ``params_from_jax``.  ``dtype`` defaults to ``cfg.dtype``
+    (bfloat16 unless the config says otherwise); the leaves the reference
+    keeps in f32 whatever the dtype (routers, SSM and xLSTM gate params)
+    stay f32."""
     dtype = dtype or dtype_of(cfg.dtype)
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"{dtype} params: the LM's bf16 paths are ROADMAP A16c")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     p: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
@@ -161,11 +203,9 @@ def lm_init(seed: int, cfg, *, dtype=None, device="cuda") -> Params:
                        for i in range(cfg.n_dense_layers)]
     p["layers"] = {}
     for pos, (kind, use_moe) in enumerate(_period_layout(cfg)):
-        blocks = [block_init(gen, cfg, kind, use_moe, cross=cfg.enc_dec,
-                             dtype=dtype)
-                  for _ in range(_n_periods(cfg))]
-        p["layers"][f"b{pos}"] = _tree.tree_map(
-            lambda *xs: torch.stack(xs), *blocks)
+        p["layers"][f"b{pos}"] = _stacked(
+            lambda: block_init(gen, cfg, kind, use_moe, cross=cfg.enc_dec,
+                               dtype=dtype), _n_periods(cfg))
     p["final_norm"] = _norm_init(cfg, dtype, dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
@@ -177,6 +217,23 @@ def lm_init(seed: int, cfg, *, dtype=None, device="cuda") -> Params:
     return p
 
 
+def _stacked(draw, n: int) -> Params:
+    """``n`` trees from ``draw()`` stacked leaf by leaf along a new leading
+    axis, each copied into place as it is drawn (so the peak is the stack
+    and one tree, not two stacks)."""
+    tree = draw()
+    out = _tree.tree_map(
+        lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                              device=t.device), tree)
+    for i in range(n):
+        if i:
+            tree = draw()
+        for dst, src in zip(_tree.leaves(out), _tree.leaves(tree)):
+            dst[i].copy_(src)
+        tree = None
+    return out
+
+
 def _enc_kind(cfg, i: int) -> str:
     return cfg.enc_pattern[i % len(cfg.enc_pattern)]
 
@@ -184,11 +241,19 @@ def _enc_kind(cfg, i: int) -> str:
 def params_from_jax(tree, device="cuda") -> Params:
     """The reference's params (a pytree of numpy or JAX arrays, as
     ``jax.tree.map(np.asarray, ...)`` gives them) as the port's tree of
-    tensors on ``device`` (default CUDA)."""
-    import numpy as np
+    tensors on ``device`` (default CUDA).  A bf16 leaf arrives as an
+    ``ml_dtypes`` bfloat16 array, which ``torch.from_numpy`` refuses: its
+    bits are carried over as int16 and viewed as ``torch.bfloat16``."""
     dev = resolve_device(device)
-    return _tree.tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
+    return _tree.tree_map(lambda a: _tensor_of(a).to(dev), tree)
+
+
+def _tensor_of(a) -> torch.Tensor:
+    import numpy as np
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def encode(params: Params, frontend_embeds: torch.Tensor, cfg
@@ -218,7 +283,6 @@ def lm_hidden(params: Params, tokens: torch.Tensor, cfg,
     aux loss summed over layers.  A decoder-only frontend model's
     projected embeddings come first (T' = F + T); an enc-dec model's
     decoder cross-attends to ``memory``."""
-    _check_supported(cfg)
     x = _embed_lookup(params["embed"], tokens)
     if frontend_embeds is not None and not cfg.enc_dec:
         fe = frontend_embeds
@@ -306,3 +370,106 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg
     loss = chunked_xent(h.reshape(-1, d), targets.reshape(-1),
                         lm_head_weight(params, cfg))
     return loss + aux
+
+
+# ---------------------------------------------------------------------------
+# Decode (serving)
+# ---------------------------------------------------------------------------
+
+def block_init_cache(cfg, kind: str, batch: int, max_len: int, dtype,
+                     device) -> Params:
+    """One block's decode state: the attention cache (a ring buffer for
+    ``L``), Mamba's (conv, h), mLSTM's (C, n, m) or sLSTM's (c, n, m,
+    h)."""
+    if kind in "ALG":
+        return attn_init_cache(_block_attn_cfg(cfg, kind), batch, max_len,
+                               dtype, device)
+    if kind == "M":
+        return ssm_init_cache(cfg.ssm_config(), batch, dtype, device)
+    if kind == "m":
+        return mlstm_init_cache(cfg.xlstm_config(), batch, device)
+    if kind == "s":
+        return slstm_init_cache(cfg.xlstm_config(), batch, device)
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+def block_decode(p: Params, x: torch.Tensor, cache: Params, index: int,
+                 cfg, kind: str, use_moe: bool,
+                 memory: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Params]:
+    """One block on one token x (B, 1, d) at position ``index``, its
+    cache updated in place; cross-attends to ``memory`` when the block has
+    cross-attention.  Returns (x, cache)."""
+    _, norm = make_norm(cfg.norm)
+    h = norm(p["norm1"], x)
+    if kind in "ALG":
+        h, cache = attn_decode(p["attn"], h, cache, index,
+                               _block_attn_cfg(cfg, kind))
+    elif kind == "M":
+        h, cache = ssm_decode(p["ssm"], h, cache, cfg.ssm_config())
+    elif kind == "m":
+        h, cache = mlstm_decode(p["mlstm"], h, cache, cfg.xlstm_config())
+        return x + h, cache
+    elif kind == "s":
+        h, cache = slstm_decode(p["slstm"], h, cache, cfg.xlstm_config())
+        return x + h, cache
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    x, _ = _block_tail(p, x + h, cfg, use_moe, memory)
+    return x, cache
+
+
+def init_caches(cfg, batch: int, max_len: int, dtype=torch.float32,
+                device="cuda") -> Params:
+    """Zeroed decode caches in the reference's tree (``prefix`` list,
+    ``layers/b{pos}`` stacked over the periods), each period's state a
+    real slice of its stack (not a broadcast view), on ``device``
+    (default CUDA).  Attention and conv caches in ``dtype``; recurrent
+    states f32."""
+    dev = resolve_device(device)
+    kinds = cfg.layer_kinds()
+    caches: Params = {}
+    if cfg.n_dense_layers:
+        caches["prefix"] = [
+            block_init_cache(cfg, kinds[i], batch, max_len, dtype, dev)
+            for i in range(cfg.n_dense_layers)]
+    caches["layers"] = {}
+    for pos, (kind, _) in enumerate(_period_layout(cfg)):
+        one = block_init_cache(cfg, kind, batch, max_len, dtype, dev)
+        caches["layers"][f"b{pos}"] = _tree.tree_map(
+            lambda t: t[None].repeat((_n_periods(cfg),) + (1,) * t.dim()),
+            one)
+    return caches
+
+
+def decode_head(params: Params, cfg) -> torch.Tensor:
+    """The (d, V) head weight at the upcast dtype (f32) that
+    ``decode_step`` multiplies by: the reference upcasts the head on
+    every call; a caller that decodes many tokens makes it once (for bf16
+    gemma3-12b a 4 GB copy)."""
+    return lm_head_weight(params, cfg).to(upcast_dtype())
+
+
+def decode_step(params: Params, token: torch.Tensor, caches: Params,
+                index: int, cfg, memory: Optional[torch.Tensor] = None, *,
+                head: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """token (B,) ids at position ``index`` (a Python int shared by the
+    batch) → f32 logits (B, V); ``caches`` are updated in place and
+    returned.  ``head`` is ``decode_head(params, cfg)``."""
+    x = _embed_lookup(params["embed"], token)[:, None, :]   # (B, 1, d)
+    kinds = cfg.layer_kinds()
+    for i in range(cfg.n_dense_layers):
+        x, _ = block_decode(params["prefix"][i], x, caches["prefix"][i],
+                            index, cfg, kinds[i], False, memory=memory)
+    layout = _period_layout(cfg)
+    unbound = [tuple(_tree.tree_map(lambda t: t.unbind(0),
+                                    tree["layers"][f"b{pos}"])
+                     for tree in (params, caches))
+               for pos in range(len(layout))]
+    for i in range(_n_periods(cfg)):
+        for (kind, use_moe), (lp, lc) in zip(layout, unbound):
+            x, _ = block_decode(_select(lp, i), x, _select(lc, i), index,
+                                cfg, kind, use_moe, memory=memory)
+    _, norm = make_norm(cfg.norm)
+    h = norm(params["final_norm"], x)[:, 0]                 # (B, d)
+    return h.to(head.dtype) @ head, caches

@@ -1,8 +1,8 @@
 """AdamW with f32 master weights, cosine schedule with warmup, global-norm
 clipping and static loss scaling — the port of ``repro.optim.optimizer``.
 
-Functional as in the reference: the state is a tree of tensors and
-``adamw_update`` returns new trees.  The non-finite skip is decided on the
+The state is a tree of tensors, as in the reference; ``adamw_update``
+writes the new values into it and into the params in place.  The non-finite skip is decided on the
 device; with ``emit_guard_stats`` it is counted under
 ``guard:nonfinite_skip`` through ``stats.record_at_runtime`` (a device
 counter folded in when the counts are read — no host read here).
@@ -79,20 +79,29 @@ def adamw_init(params: Params, *, moment_dtype=torch.float32
 def adamw_update(grads: Params, state: Dict[str, Any], params: Params,
                  cfg: OptConfig
                  ) -> Tuple[Params, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """Returns (new_params, new_state, metrics).  A step whose gradient
-    norm is not finite changes nothing (moments, master weights and the
-    step counter keep their values); ``metrics["skipped"]`` says so."""
-    g32 = _tree.tree_map(lambda g: g.to(torch.float32), grads)
-    if cfg.loss_scale > 0:
-        g32 = _tree.tree_map(lambda g: g / cfg.loss_scale, g32)
-    gnorm = global_norm(g32)
+    """Returns (params, state, metrics), the reference's update written
+    into ``state`` and ``params`` IN PLACE, leaf by leaf (the reference
+    returns new trees): at 2.35 B params (gemma3-12b cut to one period) a
+    second copy of the f32 state, which the functional form holds while
+    the caller still holds the first, does not fit on an 80 GB card.  A
+    step whose gradient norm is not finite changes nothing (moments,
+    master weights and the step counter keep their values; the params are
+    reset from the master weights); ``metrics["skipped"]`` says so."""
+    def g32_of(g):
+        g = g.to(torch.float32)
+        return g / cfg.loss_scale if cfg.loss_scale > 0 else g
+
+    gnorm = None
+    for g in _tree.leaves(grads):
+        sq = torch.sum(torch.square(g32_of(g)))
+        gnorm = sq if gnorm is None else gnorm + sq
+    gnorm = torch.sqrt(gnorm)
     finite = torch.isfinite(gnorm)
     if cfg.emit_guard_stats:
         stats.record_at_runtime("guard:nonfinite_skip", ~finite)
     clip = torch.where(gnorm > cfg.grad_clip,
                        cfg.grad_clip / (gnorm + 1e-9),
                        torch.ones_like(gnorm))
-    g32 = _tree.tree_map(lambda g: g * clip, g32)
 
     step = state["step"] + 1
     lr = cosine_lr(step, cfg)
@@ -103,30 +112,24 @@ def adamw_update(grads: Params, state: Dict[str, Any], params: Params,
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                      device=sf.device), sf)
 
-    def upd(m, v, g, w):
+    for m, v, g, w, p in zip(
+            _tree.leaves(state["mu"]), _tree.leaves(state["nu"]),
+            _tree.leaves(grads), _tree.leaves(state["master"]),
+            _tree.leaves(params)):
+        g = g32_of(g) * clip
         m32 = m.to(torch.float32)
         v32 = v.to(torch.float32)
         m1 = b1 * m32 + (1 - b1) * g
         v1 = b2 * v32 + (1 - b2) * g * g
-        mhat = m1 / bc1
-        vhat = v1 / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * w
+        delta = (m1 / bc1) / (torch.sqrt(v1 / bc2) + cfg.eps) \
+            + cfg.weight_decay * w
         w1 = w - lr * delta
-        m1 = torch.where(finite, m1, m32).to(m.dtype)
-        v1 = torch.where(finite, v1, v32).to(v.dtype)
-        w1 = torch.where(finite, w1, w)
-        return m1, v1, w1
-
-    out = [upd(m, v, g, w) for m, v, g, w in zip(
-        _tree.leaves(state["mu"]), _tree.leaves(state["nu"]),
-        _tree.leaves(g32), _tree.leaves(state["master"]))]
-    new_mu = _tree.unflatten_like(state["mu"], [o[0] for o in out])
-    new_nu = _tree.unflatten_like(state["nu"], [o[1] for o in out])
-    new_master = _tree.unflatten_like(state["master"], [o[2] for o in out])
-    new_params = _tree.tree_map(lambda w, p: w.to(p.dtype), new_master,
-                                params)
-    new_state = {"step": torch.where(finite, step, state["step"]),
-                 "mu": new_mu, "nu": new_nu, "master": new_master}
+        del delta
+        m.copy_(torch.where(finite, m1, m32))
+        v.copy_(torch.where(finite, v1, v32))
+        w.copy_(torch.where(finite, w1, w))
+        p.copy_(w)
+    state["step"].copy_(torch.where(finite, step, state["step"]))
     metrics = {"grad_norm": gnorm, "lr": lr,
                "skipped": (~finite).to(torch.float32)}
-    return new_params, new_state, metrics
+    return params, state, metrics

@@ -10,15 +10,21 @@ Run on a machine with a CUDA device:
       [--sparse-ffn IN_OUT_WR]
   PYTHONPATH=src python -m repro_torch.profile_step \
       --arch deepseek-v2-lite-16b --n-layers 3 --seq 512
+  PYTHONPATH=src python -m repro_torch.profile_step --arch gemma3-12b \
+      --decode --dtype bfloat16
 
 ``--arch`` profiles the LM trainer's step instead (``launch/steps``: loss,
-gradients and AdamW, f32, random weights), its device time keyed
+gradients and AdamW, random weights, f32 unless ``--dtype``), its
+device time keyed
 ``forward`` and ``adamw`` by the step's ranges and the backward pass,
 launched from autograd's threads, as ``(no layer)``.  Its batch is
 ``data.pipeline.train_batch`` (enc-dec and frontend configs get stub
 frontend embeddings beside the tokens, as the reference lays them out);
 ``--seq`` defaults to 512 for those, 128 otherwise.  ``--n-layers`` cuts
-the decoder's depth.
+the decoder's depth; ``--dtype`` sets the params' (default float32).
+``--decode`` profiles one tick of ``serving.ServeEngine`` instead, at
+``launch/serve.py``'s defaults (4 slots, 6-token prompts, 12 tokens each),
+the tick taken once the slots are generating.
 
 Runs two warm-up steps, then one step under ``torch.profiler`` (CPU and
 CUDA activities), and prints: the step's wall time, the summed device time
@@ -64,7 +70,8 @@ def summarize_trace(events: list) -> dict:
     """Device time by kernel name and by layer from chrome-trace events.
 
     Returns ``{"busy_ms", "kernels": [(name, ms, calls)], "layers":
-    [(layer, ms)], "longest": [(name, layer, ms, grid)], "in_order": [...]}``,
+    [(layer, ms)], "host_ms": [(layer, host ms inside its ranges)],
+    "longest": [(name, layer, ms, grid)], "in_order": [...]}``,
     each list longest first but ``in_order``, which holds the same launches
     as ``longest`` in device order; work launched outside every layer range
     is keyed ``"(no layer)"``."""
@@ -105,37 +112,29 @@ def summarize_trace(events: list) -> dict:
         launched.append((e["ts"], e["name"], layer, ms, args.get("grid")))
     kernels = sorted(((k, v[0], v[1]) for k, v in by_kernel.items()),
                      key=lambda r: -r[1])
+    host = collections.defaultdict(float)
+    for rs in ranges.values():
+        for lo, hi, name in rs:
+            host[name[len("layer:"):]] += (hi - lo) / 1e3
     return {"busy_ms": sum(r[1] for r in kernels), "kernels": kernels,
+            "host_ms": sorted(host.items(), key=lambda r: -r[1]),
             "layers": sorted(by_layer.items(), key=lambda r: -r[1]),
             "longest": [r[1:] for r in sorted(launched,
                                               key=lambda r: -r[3])],
             "in_order": [r[1:] for r in sorted(launched)]}
 
 
-def profile_step(*, net="vgg16", policy="IN_OUT_WR",
-                 scan_signed_inputs=False, image_size=224, width=1.0,
-                 num_classes=1000, batch=8, device="cuda", trace=None):
-    """Profile one step after two warm-up steps; returns a summary dict."""
+def _profiled(run, dev, trace=None) -> dict:
+    """``run()`` once under ``torch.profiler`` (CPU and CUDA), synchronized;
+    ``summarize_trace`` of it with ``wall_ms`` and ``idle_share``.
+    ``trace`` keeps the chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = resolve_device(device)
-    set_full_precision()
-    geom = dict(net=net, image_size=image_size, width=width,
-                num_classes=num_classes, batch=batch, device=dev)
-    run = train_steps(steps=2, policy=policy,
-                      scan_signed_inputs=scan_signed_inputs, **geom)
-    model, params = run["model"], run["params"]
-    pol = SCENARIOS[policy].with_(kernel_impl="pallas",
-                                  scan_signed_inputs=scan_signed_inputs)
-    img, labels = image_batch(0, 2, batch=batch, image_size=image_size,
-                              num_classes=num_classes, device=dev)
-    leaves = list(param_leaves(params).values())
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss = model.loss(params, img, labels, pol)
-        torch.autograd.grad(loss, leaves)
+        run()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -148,14 +147,32 @@ def profile_step(*, net="vgg16", policy="IN_OUT_WR",
     return res
 
 
+def profile_step(*, net="vgg16", policy="IN_OUT_WR",
+                 scan_signed_inputs=False, image_size=224, width=1.0,
+                 num_classes=1000, batch=8, device="cuda", trace=None):
+    """Profile one step after two warm-up steps; returns a summary dict."""
+    dev = resolve_device(device)
+    set_full_precision()
+    geom = dict(net=net, image_size=image_size, width=width,
+                num_classes=num_classes, batch=batch, device=dev)
+    run = train_steps(steps=2, policy=policy,
+                      scan_signed_inputs=scan_signed_inputs, **geom)
+    model, params = run["model"], run["params"]
+    pol = SCENARIOS[policy].with_(kernel_impl="pallas",
+                                  scan_signed_inputs=scan_signed_inputs)
+    img, labels = image_batch(0, 2, batch=batch, image_size=image_size,
+                              num_classes=num_classes, device=dev)
+    leaves = list(param_leaves(params).values())
+    return _profiled(lambda: torch.autograd.grad(
+        model.loss(params, img, labels, pol), leaves), dev, trace)
+
+
 def profile_lm_step(*, arch="smollm-360m", batch=8, seq=None,
-                    n_layers=None, sparse_ffn=None, device="cuda",
-                    trace=None):
+                    n_layers=None, sparse_ffn=None, dtype=torch.float32,
+                    device="cuda", trace=None):
     """Profile one LM train step (``launch/steps.make_train_step``, AdamW)
     after two warm-up steps; returns a summary dict as ``profile_step``,
     with ``peak_gib``, the device memory peak of the three steps."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import ARCHS
     from repro_torch.data.pipeline import train_batch
     from repro_torch.launch import steps
@@ -173,7 +190,7 @@ def profile_lm_step(*, arch="smollm-360m", batch=8, seq=None,
         seq = 512 if cfg.enc_dec or cfg.frontend else 128
     ocfg = optimizer.OptConfig()
     torch.cuda.reset_peak_memory_stats(dev)
-    params = transformer.lm_init(0, cfg, dtype=torch.float32, device=dev)
+    params = transformer.lm_init(0, cfg, dtype=dtype, device=dev)
     opt = optimizer.adamw_init(params)
     step_fn = steps.make_train_step(cfg, ocfg)
 
@@ -181,20 +198,35 @@ def profile_lm_step(*, arch="smollm-360m", batch=8, seq=None,
         params, opt, _ = step_fn(params, opt, train_batch(
             cfg, 0, i, batch=batch, seq_len=seq, device=dev))
     b = train_batch(cfg, 0, 2, batch=batch, seq_len=seq, device=dev)
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn(params, opt, b)
-        torch.cuda.synchronize(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = trace or os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            res = summarize_trace(json.load(f)["traceEvents"])
-    res["wall_ms"] = wall_ms
-    res["idle_share"] = max(0.0, 1.0 - res["busy_ms"] / wall_ms)
+    res = _profiled(lambda: step_fn(params, opt, b), dev, trace)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return res
+
+
+def profile_decode_tick(*, arch="smollm-360m", n_layers=None,
+                        dtype=torch.float32, device="cuda", trace=None):
+    """Profile one ``ServeEngine`` tick (four requests in four slots, the
+    tick after their prompts and one generated token) of ``arch`` at full
+    width with random ``dtype`` params; returns a summary dict as
+    ``profile_step``, with ``peak_gib``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import GenRequest, ServeEngine
+
+    dev = resolve_device(device)
+    cfg = ARCHS[arch]
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = transformer.lm_init(0, cfg, dtype=dtype, device=dev)
+    engine = ServeEngine(cfg, params, batch_slots=4, max_len=256)
+    gen = torch.Generator().manual_seed(1)
+    for rid in range(4):
+        engine.submit(GenRequest(rid, torch.randint(
+            0, cfg.vocab_size, (6,), generator=gen).tolist(), max_tokens=12))
+    for _ in range(7):
+        engine.step()
+    res = _profiled(engine.step, dev, trace)
     res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     return res
 
@@ -209,6 +241,11 @@ def main(argv=None) -> None:
                          "frontend configs, else 128)")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the LM decoder to this depth")
+    ap.add_argument("--decode", action="store_true",
+                    help="profile one serving-engine tick of --arch")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the LM's param dtype")
     ap.add_argument("--sparse-ffn", default=None, choices=list(SCENARIOS),
                     help="the LM config's sparse_ffn_scenario (a ReLU FFN's "
                          "masked plain path, as in the reference)")
@@ -221,10 +258,17 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
-    if args.arch:
+    dtype = getattr(torch, args.dtype)
+    if args.arch and args.decode:
+        res = profile_decode_tick(arch=args.arch, n_layers=args.n_layers,
+                                  dtype=dtype, trace=args.trace)
+        print(f"{args.arch} decode tick ({args.dtype}): device memory "
+              f"peak {res['peak_gib']:.2f} GiB")
+    elif args.arch:
         res = profile_lm_step(arch=args.arch, batch=args.batch,
                               seq=args.seq, n_layers=args.n_layers,
-                              sparse_ffn=args.sparse_ffn, trace=args.trace)
+                              sparse_ffn=args.sparse_ffn, dtype=dtype,
+                              trace=args.trace)
         print(f"{args.arch}: device memory peak {res['peak_gib']:.2f} GiB")
     else:
         res = profile_step(net=args.net, policy=args.policy,
@@ -232,7 +276,8 @@ def main(argv=None) -> None:
                            image_size=args.image_size,
                            width=args.width, num_classes=args.num_classes,
                            batch=args.batch, trace=args.trace)
-    print(f"step wall {res['wall_ms']:.1f} ms under the profiler; device "
+    print(f"{'tick' if args.decode else 'step'} wall {res['wall_ms']:.1f} "
+          f"ms under the profiler; device "
           f"busy {res['busy_ms']:.1f} ms; idle share "
           f"{res['idle_share']:.3f}")
     print("device time by kernel (ms, calls; the 25 longest and every "
@@ -242,6 +287,10 @@ def main(argv=None) -> None:
             print(f"  {ms:10.3f}  {n:5d}  {name[:110]}")
     print("device time by layer, forward + backward (ms):")
     for name, ms in res["layers"]:
+        print(f"  {ms:10.3f}  {name}")
+    print("host time inside each layer range (ms; the forward only, the "
+          "backward runs outside them):")
+    for name, ms in res["host_ms"]:
         print(f"  {ms:10.3f}  {name}")
     print("longest launches (ms, layer, grid):")
     for name, layer, ms, grid in res["longest"][:10]:

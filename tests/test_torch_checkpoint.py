@@ -262,3 +262,46 @@ def test_list_valued_lm_trees_restore_across_packages(tmp_path, name,
     with open(tmp_path / "step_00000004" / "treedef.json") as f:
         assert json.load(f)["treedef"] == \
             str(jax.tree_util.tree_structure(jt))
+
+
+def _bf16_state(pkg):
+    """gemma3's SMOKE params in bf16 (the config's dtype, with its f32
+    leaves) from the reference's init, in either package's form."""
+    from repro.configs import SMOKE_ARCHS as J_SMOKE
+    from repro.models.transformer import lm_init
+    from repro_torch.models.transformer import params_from_jax
+    p = lm_init(jax.random.key(5), J_SMOKE["gemma3-12b"])
+    assert jax.tree.leaves(p)[0].dtype == jnp.bfloat16
+    if pkg == "jax":
+        return p
+    return params_from_jax(jax.tree.map(np.asarray, p), device="cpu")
+
+
+def _npz_members(path):
+    import zipfile
+    with zipfile.ZipFile(os.path.join(path, "leaves.npz")) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_bf16_checkpoint_interop(tmp_path, writer):
+    """A bf16 tree saved by either package restores bit-equal in the port;
+    the port's ``leaves.npz`` holds the reference's bytes (2-byte void
+    records under the ``<V2`` header); and the reference's own restore
+    cannot read bf16 back (ROADMAP Queue C), so the difference is pinned."""
+    jt, tt = _bf16_state("jax"), _bf16_state("torch")
+    jckpt.save(str(tmp_path / "jax"), 2, jt)
+    ckpt.save(str(tmp_path / "torch"), 2, tt)
+    assert _npz_members(tmp_path / "jax" / "step_00000002") == \
+        _npz_members(tmp_path / "torch" / "step_00000002")
+    tmpl = ttree.tree_map(torch.zeros_like, tt)
+    step, back = ckpt.restore(str(tmp_path / writer), tmpl)
+    assert step == 2
+    for got, want in zip(ttree.leaves(back), ttree.leaves(tt)):
+        assert got.dtype == want.dtype
+        assert torch.equal(got.view(torch.int16) if got.dtype ==
+                           torch.bfloat16 else got,
+                           want.view(torch.int16) if want.dtype ==
+                           torch.bfloat16 else want)
+    with pytest.raises(ValueError, match="No cast function"):
+        jckpt.restore(str(tmp_path / writer), jt)
