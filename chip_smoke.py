@@ -90,7 +90,24 @@ Phases (any failure makes the exit code nonzero):
      ssm_apply; deepseek-v2-lite served at full depth in bf16 with MLA's
      absorbed decode against the parallel forward, and that decode in
      f32 at 4 layers; the serve CLI.  Every decode check also rejects a
-     planted fault.
+     planted fault;
+ 10. data-parallel training over two gloo ranks sharing the card
+     (``launch.mesh.RankPool``; NCCL refuses two ranks on one GPU):
+     ``sparse_psum`` on CUDA tensors at VGG16 conv13's WG shape, each
+     rank's sum against the numpy sum of both ranks' inputs, the
+     compressed and dense-fallback counts, an uncorrelated pair falling
+     back, the chaos matrix's collective case, and the same reduce through
+     one NCCL world of one rank; VGG16 IN_OUT_WR at full width through
+     ``make_spmd_grad_fn`` (the global batch of 8, 4 images a rank, the
+     kernels on each rank) against the single-process step, with each
+     rank's counts and launches, and one more step in each rank with
+     every kernel call held against its plain version at the rank's
+     shapes; SmolLM-360M at full width through
+     ``train_loop(mesh=..., spmd=True)`` with a StepGuard, its first step
+     against the single-process step, its losses against the
+     single-process loop's under a bound a planted fault breaks, a
+     checkpoint written by rank 0 alone and a resume.  A rank's exception
+     or hang fails the run.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, it exits nonzero and prints no result.
@@ -863,11 +880,13 @@ def bf16_cases(dev, report, detail, time_ms, gemm_case):
 
 
 @contextlib.contextmanager
-def held_against_plain(dev, tag, report, detail):
+def held_against_plain(dev, tag, report=None, detail=None):
     """Inside the block every GEMM dispatch, K2 queue and K1 encode is held
     against its plain version on the same inputs as it returns; the first
     call of each shape is timed and reported (``report`` prints a kernel
-    line, ``detail`` an encoder's plan), labelled ``tag``.  Yields (held:
+    line, ``detail`` an encoder's plan), labelled ``tag``.  Without
+    ``report`` nothing is timed: every call is only held and checked.
+    Yields (held:
     the calls held per kind, schedules: dispatches per (schedule, block),
     live: (case, live share of the output tiles, of A's blocks, of B's
     blocks, share of the dense FLOPs) per timed GEMM)."""
@@ -932,8 +951,9 @@ def held_against_plain(dev, tag, report, detail):
         case = (f"{tag} {layer} {role} {g}x{m}x{k}x{n}"
                 + (" sigma-prime" if mult is not None else "")
                 + ("" if emit is None else f" emit {emit}"))
-        if not once(("gemm", g, m, k, n, spec.block, spec.schedule, emit,
-                     mult is None, tuple(x is None for x in masks))):
+        if report is None or not once((
+                "gemm", g, m, k, n, spec.block, spec.schedule, emit,
+                mult is None, tuple(x is None for x in masks))):
             check(ok, f"{kname} {case} matches its plain version "
                   f"({rel:.2e} of max|plain|)")
             return out, bits
@@ -970,7 +990,8 @@ def held_against_plain(dev, tag, report, detail):
         held["queue"] += 1
         case = f"{tag} {stats.current_layer()} {bitmap.shape[0]}x" \
             f"{bitmap.shape[1]} cap {capacity}"
-        if not once(("queue", tuple(bitmap.shape), capacity)):
+        if report is None or not once(("queue", tuple(bitmap.shape),
+                                       capacity)):
             check(ok, f"queue_builder {case} matches its plain version")
             return got
         report("queue_builder", case, 0.0 if ok else 1.0, ok,
@@ -986,9 +1007,12 @@ def held_against_plain(dev, tag, report, detail):
         yp, bp = re_.relu_encode_plain(z, gran)
         ok = torch.equal(y, yp) and torch.equal(bits, bp)
         held["encode"] += 1
-        report("relu_encode", f"{tag} {stats.current_layer()} input "
-               f"{z.shape[0]}x{z.shape[1]} gran {gran}",
-               float((y - yp).abs().max()), ok,
+        case = f"{tag} {stats.current_layer()} input " \
+            f"{z.shape[0]}x{z.shape[1]} gran {gran}"
+        if report is None:
+            check(ok, f"relu_encode {case} matches its plain version")
+            return y, bits
+        report("relu_encode", case, float((y - yp).abs().max()), ok,
                time_ms(lambda: real_encode(z, gran)),
                time_ms(lambda: re_.relu_encode_plain(z, gran)),
                time_ms(lambda: torch.relu(z)),
@@ -1937,9 +1961,7 @@ def chaos_phase(dev):
               f"{r.detected} survived={r.survived} via {r.guard_key}; "
               f"{r.detail}", flush=True)
         check(r.ok, f"chaos case {r.fault} detected and survived on the card")
-    for name, why in faults.NOT_PORTED.items():
-        print(f"chaos NOT PORTED {name}: {why}", flush=True)
-    check(len(rows) == 7, f"{len(rows)} of 7 ported chaos cases ran")
+    check(len(rows) == 8, f"{len(rows)} of 8 chaos cases ran")
     return launches
 
 
@@ -3216,6 +3238,592 @@ def slice9_phase(dev):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: data-parallel training over two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# NCCL refuses two ranks on one GPU, so the ranks of this phase are gloo
+# ranks sharing cuda:0 (gloo all-reduces CUDA tensors through host
+# memory); one NCCL world of one rank runs the same reduce through NCCL.
+# The two ranks' kernels run on one card one after the other, so their
+# step times are the sum of both ranks' work, not a two-card step.
+DP_RANKS = 2
+DP_JOIN_S, DP_CALL_S = 180, 900        # a rank that takes longer is killed
+# (a): VGG16 conv13's weight gradient as a 2-D view (3·3·512 × 512) at
+# the wire block (128, 128), the same block pattern on both ranks; the sum
+# within DP_RTOL relative of the numpy sum.  An uncorrelated pair (each
+# rank's blocks live at DP_UNCORR, a union of ~64 % > the 0.5 cutoff) must
+# fall back on both ranks.
+DP_SHAPE, DP_GRAN, DP_LIVE, DP_UNCORR = (4608, 512), (128, 128), \
+    (0.25, 1.0), 0.4
+DP_RTOL = 1e-6
+DP_REPS = 5
+# (c): SmolLM-360M over 2 ranks at phase 7's batch, AdamW at its learning
+# rate from the first step (warmup 1, so that a fault moves the losses).
+# The first step within phase 7's rule of the single-process step; steps
+# 2-3's losses within DP_LM_LOSS_RTOL relative of the single-process
+# loop's, a bound the planted fault (rank 1 applying its own gradient, not
+# the reduced one) must break.  The SmolLM smoke config on the CPU gave
+# ≤ 1.5e-7 clean and 2.9e-4 / 5.3e-5 with the fault (steps 2 / 3).
+DP_LM_STEPS, DP_LM_CUT, DP_LM_LOSS_RTOL = 3, 2, 1e-5
+DP_VGG16_GEOM = dict(image_size=224, width=1.0, num_classes=1000)
+
+
+def correlated_stack(n, m, k, gran, live, seed):
+    """(n, m, k) data and (n, mb, kb) bitmaps with one block pattern on
+    every rank (the dW regime), ``live`` of the blocks live."""
+    import numpy as np
+    g0, g1 = gran
+    mb, kb = -(-m // g0), -(-k // g1)
+    rng = np.random.default_rng(seed)
+    bm = np.zeros(mb * kb, np.int32)
+    bm[rng.permutation(mb * kb)[:max(1, round(live * mb * kb))]] = 1
+    bm = bm.reshape(mb, kb)
+    expand = np.repeat(np.repeat(bm, g0, 0), g1, 1)[:m, :k]
+    data = rng.standard_normal((n, m, k)).astype(np.float32) \
+        * expand[None].astype(np.float32)
+    return data, np.broadcast_to(bm, (n, mb, kb)).copy()
+
+
+def uncorrelated_stack(n, m, k, gran, live, seed):
+    import numpy as np
+    g0, g1 = gran
+    rng = np.random.default_rng(seed)
+    bits = (rng.random((n, m // g0, k // g1)) < live).astype(np.int32)
+    data = rng.standard_normal((n, m, k)).astype(np.float32) * np.repeat(
+        np.repeat(bits, g0, 1), g1, 2).astype(np.float32)
+    return data, bits
+
+
+def dp_mesh(dev):
+    from repro_torch.launch.mesh import init_mesh
+    return init_mesh((DP_RANKS,), ("data",), backend="gloo", device=dev)
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed_ms(fn, dev, reps=DP_REPS):
+    """Median ms of ``reps`` calls of ``fn``, each between device syncs."""
+    ms = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def peak_gb(dev):
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
+        if dev.type == "cuda" else float("nan")
+
+
+def timed_reduce(collectives, dev, log):
+    """``collectives.psum_grads`` with each call's ms appended to
+    ``log``."""
+    real = collectives.psum_grads
+
+    def timed(*a, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        sync(dev)
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return timed
+
+
+def reduce_case(mesh, dev, data, bits, cutoff=0.5):
+    """sparse_psum of this rank's slice: (max rel err against the numpy
+    sum, counts, wire bytes, compressed ms, dense ms)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import stats
+    from repro_torch.sharding import collectives
+    x = torch.from_numpy(data[mesh.rank]).to(dev)
+    b = torch.from_numpy(bits[mesh.rank]).to(dev)
+    want = data.astype(np.float64).sum(0)
+    stats.reset()
+    collectives.reset_wire_bytes()
+    out = collectives.sparse_psum(x, b, DP_GRAN, mesh=mesh,
+                                  axis_name="data", cutoff=cutoff)
+    sync(dev)
+    counts, wire = stats.counts(), collectives.wire_bytes()
+    err = float(np.abs(out.cpu().numpy() - want).max()
+                / max(np.abs(want).max(), 1e-30))
+    prev = stats.set_runtime_counting(False)
+    try:
+        ms = timed_ms(lambda: collectives.sparse_psum(
+            x, b, DP_GRAN, mesh=mesh, axis_name="data", cutoff=cutoff), dev)
+        dense_ms = timed_ms(lambda: collectives.dense_psum(
+            x, "data", mesh=mesh), dev)
+    finally:
+        stats.set_runtime_counting(prev)
+    return {"err": err, "counts": counts, "wire": wire, "ms": ms,
+            "dense_ms": dense_ms, "dense_wire": x.numel() * 4}
+
+
+def dp_collectives_rank(device, shape):
+    """(a) and (d) in one rank: sparse_psum at each live fraction, the
+    uncorrelated pair, and the chaos matrix's collective case on this
+    world."""
+    import torch
+    from repro_torch.runtime import faults
+    dev = torch.device(device)
+    mesh = dp_mesh(dev)
+    out = {}
+    for live in DP_LIVE:
+        out[live] = reduce_case(mesh, dev, *correlated_stack(
+            DP_RANKS, *shape, DP_GRAN, live, seed=3))
+    out["uncorrelated"] = reduce_case(mesh, dev, *uncorrelated_stack(
+        DP_RANKS, *shape, DP_GRAN, DP_UNCORR, seed=9))
+    (row,) = faults.run_matrix(["collective"], device=dev)
+    out["drop"] = (row.ok, row.detail)
+    return out
+
+
+def dp_nccl_world_of_one(dev):
+    """The same reduce through NCCL, on a world of one rank in this
+    process: each result equals the input bit for bit."""
+    import torch
+    from repro_torch.kernels import stats
+    from repro_torch.launch.mesh import close_mesh, free_port, init_mesh
+    from repro_torch.sharding import collectives
+    mesh = init_mesh((1,), ("data",), backend="nccl", device=dev, rank=0,
+                     world_size=1,
+                     init_method=f"tcp://localhost:{free_port()}")
+    try:
+        for live in DP_LIVE:
+            data, bits = correlated_stack(1, *DP_SHAPE, DP_GRAN, live, 3)
+            x = torch.from_numpy(data[0]).to(dev)
+            stats.reset()
+            out = collectives.sparse_psum(
+                x, torch.from_numpy(bits[0]).to(dev), DP_GRAN, mesh=mesh,
+                axis_name="data")
+            c = stats.counts()
+            key = "collective:compressed" if live <= 0.5 \
+                else "collective:dense_fallback"
+            print(f"phase 10 nccl world of one, live {live}: counts {c}",
+                  flush=True)
+            check(torch.equal(out, x) and c.get(key) == 1,
+                  f"NCCL world of one: sparse_psum at live {live} returns "
+                  f"its input through {key}")
+    finally:
+        close_mesh()
+
+
+def dp_collectives_phase(pool, dev, shape=DP_SHAPE):
+    rows = pool.run(dp_collectives_rank, str(dev), shape, timeout=DP_CALL_S)
+    for live in DP_LIVE + ("uncorrelated",):
+        rs = [r[live] for r in rows]
+        summed = {k: sum(r["counts"].get(k, 0) for r in rs)
+                  for k in ("collective:compressed",
+                            "collective:dense_fallback")}
+        for rank, r in enumerate(rs):
+            print(f"phase 10 sparse_psum {shape} at {DP_GRAN}, live "
+                  f"{live}, rank {rank}: rel err {r['err']:.2e}; wire "
+                  f"{r['wire']} B vs dense {r['dense_wire']} B; "
+                  f"{r['ms']:.3f} ms vs dense_psum {r['dense_ms']:.3f} ms "
+                  f"(gloo, 2 ranks on one card); counts {r['counts']}",
+                  flush=True)
+            check(r["err"] <= DP_RTOL and
+                  r["counts"].get("collective:bitmap_psum") == 1,
+                  f"rank {rank}: sparse_psum at live {live} equals the sum "
+                  f"of the ranks' inputs within {DP_RTOL}")
+        want = "collective:compressed" if live == 0.25 \
+            else "collective:dense_fallback"
+        check(summed[want] == DP_RANKS and sum(summed.values()) == DP_RANKS,
+              f"live {live}: {want} on every rank ({summed})")
+    for rank, r in enumerate(rows):
+        ok, detail = r["drop"]
+        print(f"phase 10 chaos collective-drop-contrib, rank {rank}: "
+              f"{detail}", flush=True)
+        check(ok, f"rank {rank}: the dropped contribution is detected by "
+              f"probe_emit and the dense reduce is exact under it")
+    if dev.type == "cuda":
+        dp_nccl_world_of_one(dev)
+
+
+def vgg16_spmd_rank(device, geom):
+    """(b) in one rank: VGG16 IN_OUT_WR's data-parallel gradient over the
+    global batch of 8, its counts and launches, then one more step held
+    call by call against the plain versions; rank 0 also takes the
+    single-process step on the same 8 images and holds the two apart."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.cnn_training import set_full_precision
+    from repro_torch.core.policy import SCENARIOS
+    from repro_torch.data.pipeline import image_batch
+    from repro_torch.kernels import stats
+    from repro_torch.models.cnn import build_cnn
+    from repro_torch.sharding import collectives, spmd_step
+
+    set_full_precision()
+    dev = torch.device(device)
+    mesh = dp_mesh(dev)
+    model = build_cnn("vgg16", **geom)
+    params = model.init(0, device=dev)
+    batch = image_batch(0, 0, batch=8, image_size=geom["image_size"],
+                        num_classes=geom["num_classes"], device=dev)
+    pol = SCENARIOS["IN_OUT_WR"].with_(kernel_impl="pallas")
+
+    def loss_fn(p, b):
+        return model.loss(p, b[0], b[1], pol)
+
+    grad_fn = spmd_step.make_spmd_grad_fn(loss_fn, mesh)
+    reduce_ms = []
+    real = collectives.psum_grads
+    collectives.psum_grads = timed_reduce(collectives, dev, reduce_ms)
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        stats.reset()
+        collectives.reset_wire_bytes()
+        sync(dev)
+        # The main path: every launch counter is 0 just before, read just
+        # after.
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = grad_fn(params, batch)
+        sync(dev)
+        step_ms = [(time.perf_counter() - t0) * 1e3]
+        launches = kernels.launch_counts()
+        counts, wire = stats.counts(), collectives.wire_bytes()
+        for _ in range(2):
+            step_ms.append(timed_ms(lambda: grad_fn(params, batch), dev, 1))
+    finally:
+        collectives.psum_grads = real
+    out = {"loss": float(loss), "counts": counts, "launches": launches,
+           "step_ms": step_ms, "reduce_ms": reduce_ms, "wire": wire,
+           "peak_gb": peak_gb(dev)}
+    # One more step, apart from the counted one, with every K1 encode, K2
+    # queue and GEMM dispatch (K3 with its split-K reduce and NaN fix-up)
+    # held against its plain version at this rank's shapes.
+    first = len(FAILURES)
+    stats.reset()
+    with held_against_plain(dev, f"vgg16_spmd rank {mesh.rank}") as (
+            held, _, _):
+        grad_fn(params, batch)
+    out["held"] = (held, stats.counts(), FAILURES[first:])
+    if mesh.rank == 0:
+        stats.reset()
+        leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+        loss1 = loss_fn(tree.unflatten_like(params, leaves), batch)
+        grads1 = torch.autograd.grad(loss1, leaves)
+        out["single_counts"] = stats.counts()
+        out["single_loss"] = float(loss1.detach())
+        # σ′ flips: each rank's forward on its rows against the whole
+        # batch's forward on the same rows (phase 4's rule).
+        caps, flips = {}, {}
+        n = batch[0].shape[0] // mesh.size
+        with torch.no_grad():
+            model.apply(params, batch[0], pol, capture=caps)
+            for r in range(mesh.size):
+                part = {}
+                model.apply(params, batch[0][r * n:(r + 1) * n], pol,
+                            capture=part)
+                for k, v in part.items():
+                    flips[k] = flips.get(k, 0) + int(
+                        ((v > 0) != (caps[k][r * n:(r + 1) * n] > 0)).sum())
+        order = list(caps)
+        flipped = [order.index(k) for k, f in flips.items() if f]
+        top = max(flipped) if flipped else -1
+        out["flips"] = (flips, sum(v.numel() for v in caps.values()),
+                        order[top] if flipped else None)
+        del caps
+        rows = []
+        for (path, _), a, b in zip(tree.leaves_with_paths(params),
+                                   tree.leaves(grads), grads1):
+            ratio = float((a - b).abs().max() / b.abs().max().clamp_min(
+                1e-30))
+            close = bool(torch.allclose(a, b, atol=1e-3, rtol=1e-3))
+            layer = path.split("'")[1]
+            below = layer in order and order.index(layer) <= top
+            rows.append((path, ratio, close,
+                         STEP_RTOL_FLIPPED if below else KERNEL_RTOL))
+        out["leaves"] = rows
+    return out
+
+
+def vgg16_spmd_phase(pool, dev, geom=DP_VGG16_GEOM):
+    rows = pool.run(vgg16_spmd_rank, str(dev), geom, timeout=DP_CALL_S)
+    r0 = rows[0]
+    single = r0["single_counts"]
+    for rank, r in enumerate(rows):
+        print(f"phase 10 vgg16 IN_OUT_WR data-parallel, rank {rank} of "
+              f"{DP_RANKS} (4 of the 8 images): loss {r['loss']:.7f}; step "
+              f"ms {[round(x, 1) for x in r['step_ms']]} (the first with "
+              f"warm-up); all-reduce ms {[round(x, 1) for x in r['reduce_ms']]}"
+              f"; wire {r['wire']} B; peak {r['peak_gb']:.2f} GiB; counts "
+              f"{r['counts']}; launches {r['launches']}", flush=True)
+        c = r["counts"]
+        check(abs(r["loss"] - r0["single_loss"]) <= 1e-5,
+              f"rank {rank}: data-parallel loss {r['loss']:.7f} within 1e-5 "
+              f"of the single-process step's {r0['single_loss']:.7f}")
+        check(not any(k.startswith("scan") for k in c),
+              f"rank {rank}: no scan:* keys")
+        trace = {k: v for k, v in c.items()
+                 if not k.startswith("collective:")}
+        check(trace == single, f"rank {rank}: its trace-time counts equal "
+              f"the single-process step's ({single})")
+        check(c.get("collective:bitmap_psum", 0) == 0
+              and c.get("collective:dense") == 14,
+              f"rank {rank}: every leaf reduces dense (14 collective:dense, "
+              f"no bitmap: the head's WG has no operand mask, as in the "
+              f"reference)")
+        check(r["launches"] == r0["launches"],
+              f"rank {rank}: the same kernel launches as rank 0")
+        held, hc, fails = r["held"]
+        print(f"phase 10 vgg16_spmd rank {rank} audit step: {held}; its "
+              f"counts {hc}", flush=True)
+        check(not fails
+              and held["gemm"] == _sum(hc, "gemm:") == _sum(c, "gemm:") > 0
+              and held["queue"] == hc.get("queue:prefix_sum", 0)
+              == c.get("queue:prefix_sum", 0)
+              and held["encode"] == hc.get("encode:act")
+              == c.get("encode:act"),
+              f"rank {rank}: every dispatch, queue and encode of a "
+              f"data-parallel step at this rank's shapes held against its "
+              f"plain version, as many as the counted step's ({len(fails)} "
+              f"failed)")
+    flips, n_act, top = r0["flips"]
+    print(f"phase 10 vgg16 ReLU sign flips, each rank's forward vs the whole "
+          f"batch's on the same rows: {sum(flips.values())} of {n_act} "
+          f"{flips}; highest flipped layer {top}", flush=True)
+    check(sum(flips.values()) <= FLIP_SHARE * n_act,
+          f"vgg16 data-parallel sign flips <= {FLIP_SHARE} x {n_act}")
+    for path, ratio, close, rtol in r0["leaves"]:
+        print(f"phase 10 vgg16 data-parallel grad {path}: max|Δ|/max|g| "
+              f"{ratio:.3e} (rule {rtol:g}); allclose(1e-3, 1e-3) {close}",
+              flush=True)
+        check(close and ratio <= rtol,
+              f"vgg16 data-parallel grad {path} within atol = rtol = 1e-3 "
+              f"and max|Δ| <= {rtol:g} max|g| of the single-process step "
+              f"({'at or below' if rtol > KERNEL_RTOL else 'above'} the "
+              f"highest flip)")
+    if dev.type == "cuda":
+        check_path_kernels("vgg16_spmd", r0["launches"], STEP_KERNELS)
+    return r0["launches"]
+
+
+def lm_spmd_rank(device, smoke, ckdir):
+    """(c) in one rank: SmolLM-360M's first step against the
+    single-process step (rank 0), then guarded ``train_loop(mesh,
+    spmd=True)`` runs: A, 3 steps; B, 2 steps into ``ckdir``; C, resumed
+    from it to 3 (its final save counted, not written); F, A with the
+    planted fault; rank 0 then runs the single-process loop."""
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import kernels, tree
+    from repro_torch.cnn_training import set_full_precision
+    from repro_torch.configs import ARCHS, SMOKE_ARCHS
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.transformer import lm_init, lm_loss
+    from repro_torch.runtime.guards import StepGuard
+    from repro_torch.sharding import collectives, spmd_step
+
+    set_full_precision()
+    dev = torch.device(device)
+    mesh = dp_mesh(dev)
+    cfg = (SMOKE_ARCHS if smoke else ARCHS)[LM_ARCH]
+    seq = 32 if smoke else LM_SEQ
+    tcfg = TrainConfig(total_steps=DP_LM_STEPS, warmup_steps=1,
+                       checkpoint_every=0, keep_checkpoints=1, seed=0)
+    out = {}
+
+    # the first step's gradients against the single-process step
+    params = lm_init(tcfg.seed, cfg, dtype=torch.float32, device=dev)
+    batch = lm_batch(tcfg.seed, 0, batch=LM_BATCH, seq_len=seq,
+                     vocab=cfg.vocab_size, device=dev)
+    grad_fn = spmd_step.make_spmd_grad_fn(lambda p, b: lm_loss(p, b, cfg),
+                                          mesh)
+    loss, grads = grad_fn(params, batch)
+    if mesh.rank == 0:
+        leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+        loss1 = lm_loss(tree.unflatten_like(params, leaves), batch, cfg)
+        grads1 = torch.autograd.grad(loss1, leaves)
+        rels = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(tree.leaves(grads), grads1)]
+        out["first"] = (float(loss), float(loss1.detach()), max(rels))
+        del grads1, leaves, loss1
+    del params, grads, loss
+
+    commits = []
+    prev_hook = ckpt.set_crash_hook(
+        lambda name: commits.append(name)
+        if name == "checkpoint:pre_commit" else None)
+    reduce_ms = []
+    real = collectives.psum_grads
+
+    def run(steps, ckpt_dir=None):
+        guard = StepGuard()
+        stamps = [time.perf_counter()]
+        res = train_loop(cfg, tcfg, batch_size=LM_BATCH, seq_len=seq,
+                         steps=steps, ckpt_dir=ckpt_dir, log_every=0,
+                         guard=guard, device=dev, mesh=mesh, spmd=True,
+                         on_metrics=lambda i, m: stamps.append(
+                             time.perf_counter()))
+        sync(dev)
+        host = [p.detach().cpu() for p in tree.leaves(res["params"])]
+        ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        return res["losses"], [v for _, v in guard.verdicts], host, ms, \
+            res["resumed_from"]
+
+    try:
+        collectives.psum_grads = timed_reduce(collectives, dev, reduce_ms)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        collectives.reset_wire_bytes()
+        kernels.reset_launch_counts()
+        a = run(DP_LM_STEPS)
+        out["launches"] = kernels.launch_counts()
+        out["peak_gb"] = peak_gb(dev)
+        out["wire_per_step"] = collectives.wire_bytes() / DP_LM_STEPS
+        out["reduce_ms"] = reduce_ms
+        collectives.psum_grads = real
+        t0 = time.perf_counter()
+        b = run(DP_LM_CUT, ckdir)
+        out["b_s"] = time.perf_counter() - t0
+        out["commits_b"] = len(commits)
+        saves = []
+        with patched(ckpt, "save", lambda real_save: (
+                lambda path, step, tree_, **kw: saves.append(step))):
+            c = run(DP_LM_STEPS, ckdir)
+        out["saves_c"] = saves
+
+        def planted(g, **kw):
+            res = real(g, **kw)
+            n = mesh.size
+            return tree.tree_map(lambda x: x * n, g) if mesh.rank == 1 \
+                else res
+
+        collectives.psum_grads = planted
+        f = run(DP_LM_STEPS)
+    finally:
+        collectives.psum_grads = real
+        ckpt.set_crash_hook(prev_hook)
+    out.update(
+        losses_a=a[0], verdicts_a=a[1], step_ms=a[3], losses_b=b[0],
+        losses_c=c[0], resumed=c[4], verdicts_c=c[1], losses_f=f[0],
+        bit_equal=all(torch.equal(x, y) for x, y in zip(a[2], c[2])),
+        param_diff=max(float((x - y).abs().max()) for x, y in zip(a[2], c[2])),
+        n_params=sum(x.numel() for x in a[2]))
+    if mesh.rank == 0:
+        single = train_loop(cfg, tcfg, batch_size=LM_BATCH, seq_len=seq,
+                            steps=DP_LM_STEPS, log_every=0, device=dev)
+        out["losses_single"] = single["losses"]
+    return out
+
+
+def lm_spmd_phase(pool, dev, smoke=False, ckdir=None):
+    """(c) on the pool's ranks; the checkpoint goes to ``ckdir`` (default
+    a new temporary directory), removed after."""
+    import shutil
+    import tempfile
+    ckdir = ckdir or tempfile.mkdtemp(prefix="smoke_lm_spmd_")
+    try:
+        rows = pool.run(lm_spmd_rank, str(dev), smoke, ckdir,
+                        timeout=DP_CALL_S)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    r0 = rows[0]
+    loss_dp, loss1, worst = r0["first"]
+    print(f"phase 10 {LM_ARCH} data-parallel first step: loss {loss_dp:.7f} "
+          f"vs single-process {loss1:.7f}; worst gradient leaf rel L2 "
+          f"{worst:.2e}", flush=True)
+    check(abs(loss_dp - loss1) <= LM_LOSS_RTOL * abs(loss1)
+          and worst <= LM_GRAD_RTOL,
+          f"{LM_ARCH} data-parallel first step within {LM_LOSS_RTOL} (loss) "
+          f"and {LM_GRAD_RTOL} (every leaf, relative L2) of the "
+          f"single-process step")
+    single = r0["losses_single"]
+
+    def rel(losses):
+        return [abs(x - y) / abs(y) for x, y in zip(losses, single)]
+
+    for rank, r in enumerate(rows):
+        print(f"phase 10 {LM_ARCH} train_loop(spmd=True), rank {rank} of "
+              f"{DP_RANKS}, {r['n_params'] / 1e6:.1f} M params, global batch "
+              f"{LM_BATCH} x {LM_SEQ}: losses {r['losses_a']} (single-process"
+              f" {single}); step ms {[round(x, 1) for x in r['step_ms']]}; "
+              f"all-reduce ms {[round(x, 1) for x in r['reduce_ms']]} for "
+              f"{r['wire_per_step']:.0f} B a step (gloo through host "
+              f"memory; both ranks on one card); peak {r['peak_gb']:.2f} "
+              f"GiB; run B {r['b_s']:.1f} s with its save; planted fault "
+              f"losses {r['losses_f']} (rel {rel(r['losses_f'])})",
+              flush=True)
+        check(r["verdicts_a"] == ["ok"] * DP_LM_STEPS,
+              f"rank {rank}: every guarded step's verdict is ok")
+        check(r["losses_a"] == rows[0]["losses_a"],
+              f"rank {rank}: the same losses as rank 0")
+        check(max(rel(r["losses_a"])) <= DP_LM_LOSS_RTOL,
+              f"rank {rank}: losses within {DP_LM_LOSS_RTOL} relative of "
+              f"the single-process loop's ({rel(r['losses_a'])})")
+        check(max(rel(r["losses_f"])[1:]) > DP_LM_LOSS_RTOL,
+              f"rank {rank}: the bound rejects the planted fault "
+              f"(rank 1 applying its own gradient)")
+        tail = r["losses_a"][DP_LM_CUT:]
+        resume_rel = max(abs(x - y) / abs(y)
+                         for x, y in zip(r["losses_c"], tail))
+        print(f"phase 10 {LM_ARCH} rank {rank}: resumed step "
+              f"{DP_LM_STEPS} loss {r['losses_c']} vs {tail} uninterrupted; "
+              f"params bit-equal: {r['bit_equal']} (max |Δ| "
+              f"{r['param_diff']:.3e})", flush=True)
+        check(r["resumed"] == DP_LM_CUT
+              and r["losses_b"] == r["losses_a"][:DP_LM_CUT]
+              and (r["losses_c"] == tail or resume_rel <= LM_RESUME_RTOL),
+              f"rank {rank}: resumed at step {DP_LM_CUT}, its step "
+              f"{DP_LM_STEPS} loss equal to the uninterrupted run's "
+              f"(bit-equal, or within {LM_RESUME_RTOL})")
+        check(r["commits_b"] == (1 if rank == 0 else 0)
+              and r["saves_c"] == ([DP_LM_STEPS] if rank == 0 else []),
+              f"rank {rank}: {'only this rank' if rank == 0 else 'nothing'} "
+              f"wrote the checkpoint")
+        check(sum(r["launches"].values()) == 0,
+              f"rank {rank}: the dense decoder launches none of the sparse "
+              f"kernels")
+    return r0["launches"]
+
+
+def dp_phase(dev):
+    """Phase 10: (a) sparse_psum on the card over two gloo ranks and one
+    NCCL world, (b) VGG16 IN_OUT_WR data-parallel, (c) SmolLM-360M through
+    train_loop(mesh, spmd=True), (d) the chaos case on the two ranks (the
+    matrix's other cases run in phase 7).  A rank's exception, or a rank
+    that hangs past its timeout, fails the phase."""
+    from repro_torch.launch.mesh import RankError, RankPool
+    t0 = time.perf_counter()
+    by_path = {}
+    try:
+        with RankPool(DP_RANKS, backend="gloo", device=str(dev),
+                      timeout=DP_JOIN_S) as pool:
+            print(f"phase 10: {DP_RANKS} gloo ranks on {dev} joined in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for name, fn in (("collectives", dp_collectives_phase),
+                             ("vgg16_spmd", vgg16_spmd_phase),
+                             ("lm_spmd", lm_spmd_phase)):
+                t1 = time.perf_counter()
+                res = fn(pool, dev)
+                if res is not None:
+                    by_path[name] = res
+                print(f"phase 10 {name}: {time.perf_counter() - t1:.1f} s",
+                      flush=True)
+    except RankError as e:
+        check(False, f"phase 10: {e}")
+    print(f"phase 10 (data-parallel over {DP_RANKS} ranks): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
 def main():
     try:
         import torch
@@ -3258,6 +3866,7 @@ def main():
     by_path.update(guarded_lm_phase(dev))
     by_path.update(lm_families_phase(dev))
     by_path.update(slice9_phase(dev))
+    by_path.update(dp_phase(dev))
 
     mm_cu = "src/repro_torch/csrc/masked_matmul.cu"
     mm_py = "src/repro/kernels/masked_matmul.py"

@@ -23,8 +23,8 @@ only after the new rename lands); the parent dir is fsync'd; older steps
 and wreckage are pruned.  ``restore`` with no explicit step falls back to
 the previous intact checkpoint when the newest is corrupt or partial
 (counted as ``guard:ckpt_fallback``; the wreck goes to ``*.corrupt``).
-The elastic ``restore_resharded`` waits for the sharding port (ROADMAP
-A18).
+``restore_resharded`` restores onto the replicated placement of the
+data-parallel path: every rank loads the whole tree onto its own device.
 """
 from __future__ import annotations
 
@@ -298,3 +298,22 @@ def load_state(path: str, step: Optional[int] = None) -> Optional[dict]:
             return json.load(f)
     except (OSError, ValueError):
         return None
+
+
+def _replicated(spec) -> bool:
+    return all(entry is None for entry in spec)
+
+
+def restore_resharded(path: str, template: Any, placements: Any,
+                      step: Optional[int] = None) -> Tuple[int, Any]:
+    """Restore onto a new layout: ``placements`` is one
+    ``sharding.partition.PartitionSpec`` for every leaf, or a tree of them
+    matching ``template``.  The replicated placement (every entry None) is
+    what the data-parallel path runs: each rank restores the whole tree
+    onto its own device, the device of its template leaves.  Any other
+    placement is ROADMAP A18b and raises."""
+    from repro_torch.sharding.partition import A18B, spec_leaves
+    if not all(_replicated(s) for _, s in spec_leaves(placements)):
+        raise NotImplementedError(f"restore_resharded: {A18B}")
+    return restore(path, template, step)
+

@@ -1,1 +1,2 @@
-"""Launch layer: the step factory and the guarded single-device trainer."""
+"""Launch layer: the step factories, the guarded trainer (single-process
+or data-parallel over a ``mesh.Mesh``) and the serving entry point."""

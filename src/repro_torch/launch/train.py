@@ -15,8 +15,18 @@
   * the fault-injection taps ``train:params`` / ``train:opt_state``.
 
 The autotuner's device-side telemetry is folded once a step
-(``kernels.autotune.fold_pending``).  Meshes, FSDP and the SPMD step wait
-for the sharding port (ROADMAP A18).
+(``kernels.autotune.fold_pending``).
+
+``spmd=True`` with a ``launch.mesh.Mesh`` runs the data-parallel step
+(``sharding.spmd_step``) in every rank of the mesh: params and optimizer
+state replicated, each rank's rows of the global batch, the gradient
+all-reduce bitmap-compressed.  Every rank restores (the replicated
+``checkpoint.restore_resharded``); only rank 0 writes checkpoints and
+``state.json``; barriers after each save and around each restore keep
+every rank's reads of the directory apart from rank 0's writes.  The
+guard reads all-reduced metrics, so its verdicts are the same on every
+rank.  A mesh without ``spmd`` and ``fsdp`` are the jit partitioner's
+half, ROADMAP A18b, and raise.
 
 Decoder-only configs without a frontend train here (dense, MoE, MLA, an
 unrolled dense prefix); enc-dec and frontend configs raise, since the
@@ -46,6 +56,8 @@ from repro_torch.models.transformer import lm_init
 from repro_torch.optim.optimizer import OptConfig, adamw_init
 from repro_torch.runtime import faults as _faults
 from repro_torch.runtime.guards import StepGuard
+from repro_torch.sharding import partition
+from repro_torch.sharding import spmd_step as _spmd
 
 
 @dataclasses.dataclass
@@ -93,6 +105,7 @@ def train_loop(
     guard: Optional[StepGuard] = None,
     loss_flush_steps: int = 4096,
     spmd: bool = False,
+    collective_cutoff: float = _spmd.DEFAULT_CUTOFF,
     device="cuda",
 ) -> Dict[str, Any]:
     """Returns {'params', 'opt_state', 'losses', 'straggler',
@@ -102,10 +115,20 @@ def train_loop(
     ``StepGuard.observe_step``; a *rollback*/*degrade* verdict restores the
     newest intact checkpoint (degrade first demotes the suspect specs down
     the schedule ladder), and unhealthy steps never produce checkpoints.
-    Runs on CUDA unless ``device="cpu"``."""
-    if mesh is not None or fsdp or spmd:
+    ``spmd=True`` (with ``mesh``) runs the data-parallel step in this rank
+    of the mesh, with dense fallback above ``collective_cutoff`` union live
+    fraction.  Runs on CUDA unless ``device="cpu"``."""
+    if spmd:
+        if mesh is None:
+            raise ValueError("spmd=True requires a mesh")
+        if tcfg.microbatches != 1:
+            raise ValueError(
+                "spmd mode: the mesh IS the data-parallel split; "
+                "gradient-accumulation microbatching is the single-process "
+                "step's feature (use microbatches=1)")
+    if fsdp or (mesh is not None and not spmd):
         raise NotImplementedError(
-            "mesh / fsdp / spmd training: the sharding port is ROADMAP A18")
+            f"train_loop(mesh=..., spmd=False) / fsdp: {partition.A18B}")
     if cfg.enc_dec or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: the loop feeds lm_batch tokens only, no frontend "
@@ -117,7 +140,12 @@ def train_loop(
         total_steps=tcfg.total_steps, weight_decay=tcfg.weight_decay,
         beta1=tcfg.beta1, beta2=tcfg.beta2, grad_clip=tcfg.grad_clip,
         loss_scale=tcfg.loss_scale, emit_guard_stats=guard is not None)
-    step_fn = make_train_step(cfg, opt_cfg, microbatches=tcfg.microbatches)
+    if spmd:
+        step_fn = _spmd.make_spmd_train_step(cfg, opt_cfg, mesh,
+                                             cutoff=collective_cutoff)
+    else:
+        step_fn = make_train_step(cfg, opt_cfg,
+                                  microbatches=tcfg.microbatches)
 
     params = lm_init(tcfg.seed, cfg, dtype=param_dtype, device=dev)
     opt_state = adamw_init(params)
@@ -125,9 +153,26 @@ def train_loop(
     resumed_from = None
 
     def _restore_latest(params, opt_state):
-        step, state = ckpt.restore(ckpt_dir,
-                                   {"params": params, "opt": opt_state})
+        tpl = {"params": params, "opt": opt_state}
+        if mesh is not None:
+            step, state = ckpt.restore_resharded(ckpt_dir, tpl,
+                                                 partition.P())
+        else:
+            step, state = ckpt.restore(ckpt_dir, tpl)
         return step, state["params"], state["opt"]
+
+    def _barrier():
+        """Fences the checkpoint directory: ranks may run apart between
+        collectives (replicas along a model axis share none), so no rank
+        may write it while another still reads it."""
+        if mesh is not None:
+            mesh.barrier()
+
+    def _save(step, extra):
+        if mesh is None or mesh.rank == 0:
+            ckpt.save(ckpt_dir, step, {"params": params, "opt": opt_state},
+                      keep=tcfg.keep_checkpoints, extra=extra)
+        _barrier()
 
     def _host_state(step):
         """The state.json resume payload: autotune cache + guard state."""
@@ -144,6 +189,8 @@ def train_loop(
             _autotune.import_state(host_state.get("autotune") or {})
             if guard is not None and host_state.get("guard"):
                 guard.import_state(host_state["guard"])
+    if ckpt_dir:
+        _barrier()
 
     losses: list = []                 # host floats, flushed chunkwise
     pending: list = []                # device values awaiting one sync
@@ -186,19 +233,19 @@ def train_loop(
         if verdict in ("rollback", "degrade"):
             if verdict == "degrade":
                 guard.degrade()
-            if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
-                _, params, opt_state = _restore_latest(params, opt_state)
+            if ckpt_dir:
+                _barrier()
+                if ckpt.latest_step(ckpt_dir) is not None:
+                    _, params, opt_state = _restore_latest(params,
+                                                           opt_state)
+                _barrier()
         if ckpt_dir and tcfg.checkpoint_every and \
                 (step + 1) % tcfg.checkpoint_every == 0 and verdict == "ok":
             # never checkpoint an unhealthy step — a rollback must have an
             # intact state to land on
-            ckpt.save(ckpt_dir, step + 1,
-                      {"params": params, "opt": opt_state},
-                      keep=tcfg.keep_checkpoints,
-                      extra=_host_state(step + 1))
+            _save(step + 1, _host_state(step + 1))
     if ckpt_dir:
-        ckpt.save(ckpt_dir, steps, {"params": params, "opt": opt_state},
-                  keep=tcfg.keep_checkpoints, extra=_host_state(steps))
+        _save(steps, _host_state(steps))
     losses.extend(float(l) for l in pending)   # final chunk sync
     return {"params": params, "opt_state": opt_state, "losses": losses,
             "straggler": detector, "resumed_from": resumed_from}

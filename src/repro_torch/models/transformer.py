@@ -22,8 +22,9 @@ f32 (``common.upcast_dtype``).
 the sizes the port trains recomputing the forward would only cost time,
 and a recomputed sparse FFN would count ``encode:act`` twice (ROADMAP
 Queue C).  The Mamba chunk body is the exception (``models/ssm.py``).
-The sharding ``constraint`` calls are no-ops on one device and are left
-out.
+The reference's sharding ``constraint`` calls are left out: with no rules
+installed ``repro_torch.sharding.context.constraint`` is the identity, the
+only state the data-parallel path runs in.
 
 Decode (``init_caches``, ``decode_step``): the caches are real per-period
 tensors (the reference broadcasts one cache over the periods), updated in

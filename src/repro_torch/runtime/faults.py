@@ -12,14 +12,17 @@ Faults are addressed by SITE; this module installs into the owning layers'
   gemm:spec             compact-queue capacity shrunk at dispatch
   gemm:emit_bits        bit flipped in an emitted dy bitmap
   registry:register     grad-bitmap registrations dropped
-  collective:allreduce  NOT PORTED: the compressed all-reduce is ROADMAP A18
+  collective:allreduce  one rank's live-block contribution zeroed inside
+                        the bitmap-compressed gradient all-reduce (the dense
+                        paths sit outside the tamper point)
   checkpoint:post_leaves / checkpoint:pre_commit
                         the checkpoint writer crashes at that point
 
 ``python -m repro_torch.runtime.faults --matrix [--device cpu]`` runs the
-seven ported cases (the train cases on ``SMOKE_ARCHS["smollm-360m"]``, the
-GEMM cases with ``kernel_impl="pallas"``: on the kernels on the card) and
-reports the collective case as not ported.
+eight cases (the train cases on ``SMOKE_ARCHS["smollm-360m"]``, the GEMM
+cases with ``kernel_impl="pallas"``: on the kernels on the card).  The
+collective case runs on the world the process has joined, a world of one
+rank when it has joined none, as the reference's runs on its one device.
 """
 from __future__ import annotations
 
@@ -40,13 +43,10 @@ SITES: Dict[str, tuple] = {
     "gemm:spec": ("queue_overflow",),
     "gemm:emit_bits": ("bitmap_flip",),
     "registry:register": ("registry_drop",),
+    "collective:allreduce": ("drop_contrib",),
     "checkpoint:post_leaves": ("crash",),
     "checkpoint:pre_commit": ("crash",),
 }
-
-# The reference's cases that wait for another part of the port.
-NOT_PORTED = {"collective_drop": "ROADMAP A18 (sharding/collectives)"}
-
 
 class InjectedCrash(RuntimeError):
     """Raised by an armed ``crash`` fault at its checkpoint protocol point."""
@@ -71,9 +71,6 @@ _PREV_HOOKS: Optional[tuple] = None
 def arm(fault: Fault) -> Fault:
     """Arm ``fault`` at its site (replacing any fault already there) and
     install the layer hooks on first use."""
-    if fault.site == "collective:allreduce":
-        raise NotImplementedError(
-            f"fault site {fault.site!r}: {NOT_PORTED['collective_drop']}")
     if fault.site not in SITES:
         raise ValueError(f"unknown fault site {fault.site!r}; "
                          f"one of {sorted(SITES)}")
@@ -107,10 +104,12 @@ def _install_hooks() -> None:
     from repro_torch import checkpoint as ckpt
     from repro_torch.core import sparse_tensor
     from repro_torch.kernels import ops
+    from repro_torch.sharding import collectives
     _PREV_HOOKS = (
         ops.set_tamper_hook(_tamper_hook),
         sparse_tensor.set_register_hook(_register_hook),
         ckpt.set_crash_hook(_crash_hook),
+        collectives.set_collective_hook(_collective_hook),
     )
 
 
@@ -121,10 +120,12 @@ def _uninstall_hooks() -> None:
     from repro_torch import checkpoint as ckpt
     from repro_torch.core import sparse_tensor
     from repro_torch.kernels import ops
-    tamper, register, crash = _PREV_HOOKS
+    from repro_torch.sharding import collectives
+    tamper, register, crash, collective = _PREV_HOOKS
     ops.set_tamper_hook(tamper)
     sparse_tensor.set_register_hook(register)
     ckpt.set_crash_hook(crash)
+    collectives.set_collective_hook(collective)
     _PREV_HOOKS = None
 
 
@@ -160,6 +161,18 @@ def _register_hook(obj, bitmap, gran):
         f.fired += 1
         return False              # veto: the hand-off never happens
     return True
+
+
+def _collective_hook(site: str, contrib, index: int, size: int):
+    """Zero the compact-buffer contribution of ONE rank (``seed`` picks
+    which, mod the number of ranks reduced over) inside the compressed
+    all-reduce — a torn write on the wire: blocks only that rank owned
+    arrive as zeros while the union bitmap still marks them live."""
+    f = _ARMED.get(site)
+    if f is None or f.kind != "drop_contrib":
+        return contrib
+    f.fired += 1
+    return contrib * float(index != f.seed % size)
 
 
 def _crash_hook(name: str) -> None:
@@ -202,7 +215,7 @@ def _plant_nonfinite(tree, kind: str, seed: int):
 
 
 # ---------------------------------------------------------------------------
-# The chaos matrix — every ported fault class: inject, detect, attribute,
+# The chaos matrix — every fault class: inject, detect, attribute,
 # survive
 # ---------------------------------------------------------------------------
 
@@ -423,6 +436,71 @@ def _case_registry_drop() -> MatrixRow:
         f"misses: baseline={baseline_misses} faulted={deltas['registry:miss']}")
 
 
+def _case_collective_drop() -> MatrixRow:
+    """One rank's live-block contribution zeroed inside the compressed
+    gradient all-reduce → blocks only that rank owned arrive all-zero while
+    the union bitmap still marks them live; the guard's consistency probe
+    (``probe_emit`` on the summed gradient against the union's live bits)
+    flags the disagreement, and the summed norm drops below the clean
+    reduce's.  Survival: the dense path sits outside the tamper point — the
+    same reduce with ``cutoff=1.0`` (capacity ≥ every block ⇒ dense) is
+    exact under the still-armed fault.  Runs on the world this process has
+    joined (every rank of it must run the case), else on a world of one."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.sharding import collectives
+    from .guards import StepGuard
+    _fresh()
+    if dist.is_initialized():
+        n = dist.get_world_size()
+        mesh = init_mesh((n,), ("data",), backend=dist.get_backend(),
+                         device=_DEVICE)
+    else:
+        mesh = init_mesh((1,), ("data",), backend=None, device=_DEVICE)
+    n_dev, me = mesh.size, mesh.rank
+    gran, m, n = (4, 4), 16, 16                # 4×4 grid = 16 blocks
+    rng = np.random.default_rng(3)
+    # Rank 0 (the one the seed drops) alone owns block (0, 0); blocks
+    # (1, 1) and (2, 2) are live on every rank; the rest is dead.
+    shards = np.zeros((n_dev, m, n), np.float32)
+    shards[0, 0:4, 0:4] = rng.standard_normal((4, 4))
+    for s in range(n_dev):
+        shards[s, 4:8, 4:8] = rng.standard_normal((4, 4))
+        shards[s, 8:12, 8:12] = rng.standard_normal((4, 4))
+    bms = (np.abs(shards).reshape(n_dev, 4, 4, 4, 4).sum(axis=(2, 4)) > 0
+           ).astype(np.int32)
+    x, bm = _tensor(shards[me]), _tensor(bms[me])
+
+    def _reduce(cutoff):
+        return collectives.sparse_psum(x, bm, gran, mesh=mesh,
+                                       axis_name="data", cutoff=cutoff,
+                                       return_bits=True)
+
+    guard = StepGuard()
+    fault = arm(Fault("collective:allreduce", "drop_contrib", seed=0))
+    try:
+        out, union = _reduce(0.5)
+        out_dense, _ = _reduce(1.0)
+    finally:
+        disarm()
+    ref = shards.sum(0)
+    out_h = out.cpu().numpy()
+    ok_probe, _ = guard.probe_emit(out_h, (union > 0).to(torch.int32), gran)
+    g = stats.guard_counts()
+    c = stats.counts()
+    norm_drop = 1.0 - float(np.linalg.norm(out_h) / np.linalg.norm(ref))
+    detected = (not ok_probe) and g.get("guard:bitmap_mismatch", 0) >= 1 \
+        and fault.fired >= 1 and norm_drop > 0.0
+    survived = bool(np.allclose(out_dense.cpu().numpy(), ref, atol=1e-5)) \
+        and c.get("collective:dense", 0) >= 1
+    return MatrixRow(
+        "collective-drop-contrib", "collective:allreduce", "drop_contrib",
+        detected, "guard:bitmap_mismatch", survived,
+        f"probe_ok={ok_probe} norm_drop={norm_drop:.3f} "
+        f"dense_exact={survived} ranks={n_dev}")
+
+
 def _case_ckpt_crash_mid_save() -> MatrixRow:
     """Checkpoint writer dies between the payload write and the commit
     rename → the partial ``.tmp`` dir is never visible as a checkpoint,
@@ -495,6 +573,7 @@ CASES: List[Callable[[], MatrixRow]] = [
     _case_bitmap_flip,
     _case_queue_overflow_demote,
     _case_registry_drop,
+    _case_collective_drop,
     _case_ckpt_crash_mid_save,
     _case_ckpt_corrupt_newest,
 ]
@@ -502,10 +581,10 @@ CASES: List[Callable[[], MatrixRow]] = [
 
 def run_matrix(names: Optional[List[str]] = None,
                device="cuda") -> List[MatrixRow]:
-    """Run the ported fault catalogue (optionally filtered by substring) on
+    """Run the fault catalogue (optionally filtered by substring) on
     ``device`` (default CUDA) and return one row per case.  Each case
     isolates its own stats/autotune state and disarms its faults on the way
-    out; the cases of ``NOT_PORTED`` are not run (``main`` reports them)."""
+    out."""
     global _DEVICE
     from repro_torch.device import resolve_device
     prev, _DEVICE = _DEVICE, resolve_device(device)
@@ -541,8 +620,8 @@ def write_csv(rows: List[MatrixRow], path: str) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
-        description="Chaos matrix: inject every ported fault class, assert "
-                    "each is detected, attributed and survived.")
+        description="Chaos matrix: inject every fault class, assert each "
+                    "is detected, attributed and survived.")
     ap.add_argument("--matrix", action="store_true",
                     help="run the full fault catalogue")
     ap.add_argument("--only", nargs="*", default=None,
@@ -564,14 +643,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"{mark}  {r.fault:<{width}} detected={str(r.detected):<5} "
               f"survived={str(r.survived):<5} via {r.guard_key}")
         print(f"      {r.detail}")
-    for name, why in NOT_PORTED.items():
-        print(f"NOT PORTED  {name:<{width - 6}} {why}")
     if args.csv:
         write_csv(rows, args.csv)
         print(f"wrote {args.csv}")
     bad = [r for r in rows if not r.ok]
-    print(f"{len(rows) - len(bad)}/{len(rows)} ported fault classes detected "
-          f"and survived; {len(NOT_PORTED)} not ported")
+    print(f"{len(rows) - len(bad)}/{len(rows)} fault classes detected "
+          f"and survived")
     if bad and args.fail_on_undetected:
         return 1
     return 0

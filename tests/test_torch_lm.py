@@ -226,8 +226,8 @@ def test_train_loop_resume_equals_uninterrupted(tmp_path):
 
 def test_unported_families_raise():
     """Every SMOKE architecture builds, in f32 and in its config's bf16
-    default (sliding windows, Mamba, xLSTM: ROADMAP A16c); meshes still
-    raise (A18)."""
+    default (sliding windows, Mamba, xLSTM: ROADMAP A16c); FSDP still
+    raises (A18b)."""
     for name in sorted(T_SMOKE):
         p32 = ttr.lm_init(0, T_SMOKE[name], dtype=torch.float32,
                           device="cpu")
@@ -239,7 +239,7 @@ def test_unported_families_raise():
             [x.shape for x in ttree.leaves(p32)]
     with pytest.raises(NotImplementedError, match="A18"):
         train_loop(T_SMOKE["smollm-360m"], TTrainConfig(), batch_size=2,
-                   seq_len=4, steps=1, spmd=True, device="cpu")
+                   seq_len=4, steps=1, fsdp=True, device="cpu")
     full = T_ARCHS["smollm-360m"]
     assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
             full.d_ff, full.vocab_size) == (32, 960, 15, 5, 2560, 49152)
