@@ -107,7 +107,19 @@ Phases (any failure makes the exit code nonzero):
      against the single-process step, its losses against the
      single-process loop's under a bound a planted fault breaks, a
      checkpoint written by rank 0 alone and a resume.  A rank's exception
-     or hang fails the run.
+     or hang fails the run;
+ 11. the bitmap-contract verifier (``repro_torch.analysis``): one
+     full-width IN_OUT_WR step each of VGG16 and MobileNet (phase 4's
+     geometry and first batch, MobileNet with ``scan_signed_inputs``) run
+     unaudited and then under the trace audit, with zero violations, the
+     audited loss and gradients bit-equal to the unaudited ones, one
+     encode region per ``encode:act`` count and the step's ms with and
+     without the recorder; a second bitmap_scan of dy, a torch.matmul and
+     a hand-built GemmSpec planted on the card and caught (RESCAN,
+     DENSE_GEMM, SPEC_UNRESOLVED); the five standard workloads clean; the
+     kernel sweep (guard bands, poison, the shadow build's store counts)
+     over every kernel of the table, clean, and its planted faults caught;
+     whether compute-sanitizer can run; the lint of src/repro_torch clean.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, it exits nonzero and prints no result.
@@ -3824,6 +3836,219 @@ def dp_phase(dev):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the bitmap-contract verifier on the card
+# ---------------------------------------------------------------------------
+
+# Every kernel of the table: the sweep must launch each one.
+SWEEP_KERNELS = ("relu_encode", "queue_builder", "compact_gemm",
+                 "predicated_gemm", "splitk_reduce", "queue_member",
+                 "emit_nan_fixup", "bitmap_scan", "masked_matmul_2d",
+                 "compact_masked_matmul_2d")
+# The kernels of one IN_OUT_WR step (phase 4's paths without the IN_OUT
+# step, which alone launches predicated_gemm).
+AUDIT_KERNELS = {net: tuple(k for k in PATHS[net][3] if k != "predicated_gemm")
+                 for net in ("vgg16", "mobilenet")}
+# Each planted fault and the code that must catch it (the capacity below
+# the live count must be absorbed by the overflow fallback: no code).
+SWEEP_PLANTS = {"short_output": "STORE_OOB", "duplicate_slot": "DOUBLE_WRITE",
+                "extra_split": "ACC_READ_BEFORE_WRITE",
+                "queue_short": "QUEUE_WRITE_OOB",
+                "tiles_overstated": "DUMP_SLOT_LEAK",
+                "capacity_below_live": None}
+
+
+def audited_step(dev, net, image_size=224, width=1.0, num_classes=1000,
+                 batch=8):
+    """(a) One full-width IN_OUT_WR step of ``net`` through the kernels,
+    unaudited and then under the trace audit: zero violations, the audited
+    loss and gradients equal to the unaudited ones bit for bit, one encode
+    region per ``encode:act`` count (and one scan region per
+    ``scan_pallas:act``); returns the audited step's launches."""
+    import torch
+    from repro_torch.analysis import trace_audit
+    from repro_torch.core.policy import SCENARIOS
+    from repro_torch.data.pipeline import image_batch
+    from repro_torch.kernels import stats
+    from repro_torch.models.cnn import build_cnn
+
+    _, scan, bn_seed, _ = PATHS[net]
+    model = build_cnn(net, image_size=image_size, width=width,
+                      num_classes=num_classes)
+    params = model.init(0, device=dev)
+    if bn_seed is not None:
+        perturb_batchnorm(params, bn_seed)
+    img, labels = image_batch(0, 0, batch=batch, image_size=image_size,
+                              num_classes=num_classes, device=dev)
+    pol = SCENARIOS["IN_OUT_WR"].with_(kernel_impl="pallas",
+                                       scan_signed_inputs=scan)
+    step = trace_audit.grad_step(lambda p: model.loss(p, img, labels, pol),
+                                 params)
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    step()                                   # warm-up
+    (loss, grads), plain_ms = timed(step)
+    # The recorder's first call pays one-time work of its own (PyTorch's
+    # Python dispatch tables): timed apart, then the counted call.
+    _, first_ms = timed(lambda: trace_audit.trace_fn(step))
+    stats.reset()
+    (res, audit_ms), launches = launches_of(
+        timed, lambda: trace_audit.trace_fn(step))
+    (loss_a, grads_a), trace = res
+    counts = stats.counts()
+    t0 = time.perf_counter()
+    vs = trace_audit.audit_trace(trace, workload=net)
+    check_s = time.perf_counter() - t0
+    regions = trace.region_counts()
+    tag = f"phase 11 {net} audit"
+    print(f"{tag}: step {plain_ms:.1f} ms unaudited, {audit_ms:.1f} ms "
+          f"under the recorder (its first call {first_ms:.1f} ms); checks "
+          f"{check_s * 1e3:.0f} ms over "
+          f"{len(trace.ops)} ops; regions {regions}; "
+          f"{len(trace.gemm_specs)} GemmSpecs", flush=True)
+    for v in vs:
+        print(f"  {v}", flush=True)
+    check(vs == [], f"{tag}: zero violations ({len(vs)})")
+    check(torch.equal(loss, loss_a) and len(grads) == len(grads_a)
+          and all(torch.equal(g, h) for g, h in zip(grads, grads_a)),
+          f"{tag}: audited loss and gradients bit-equal to the unaudited "
+          f"step's")
+    check(regions.get("encode", 0) == counts.get("encode:act", -1) > 0,
+          f"{tag}: encode regions {regions.get('encode', 0)} == encode:act "
+          f"{counts.get('encode:act')}")
+    check(regions.get("scan", 0) == counts.get("scan_pallas:act", 0),
+          f"{tag}: scan regions {regions.get('scan', 0)} == scan_pallas:act "
+          f"{counts.get('scan_pallas:act', 0)}")
+    check(regions.get("gemm", 0) == len(trace.gemm_specs) > 0,
+          f"{tag}: one gemm region per dispatch "
+          f"({regions.get('gemm', 0)}, {len(trace.gemm_specs)})")
+    check_path_kernels(f"audit_{net}", launches, AUDIT_KERNELS[net])
+    return launches
+
+
+def audit_plants(dev):
+    """(b) Faults planted on the card, each caught by the audit: a second
+    bitmap_scan of dy (RESCAN), a torch.matmul on the path (DENSE_GEMM), a
+    hand-built GemmSpec (SPEC_UNRESOLVED); and the five standard workloads
+    clean."""
+    import torch
+    from repro_torch.analysis import trace_audit
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(64, 64, generator=gen, device=dev)
+    w = torch.randn(64, 64, generator=gen, device=dev)
+
+    def rescan(dy):
+        b1 = ops.bitmap_scan(dy, block=(8, 8), kind="grad")
+        b2 = ops.bitmap_scan(dy, block=(8, 8), kind="grad")
+        return b1.sum() + b2.sum()
+
+    def dense(a, b):
+        return torch.matmul(torch.relu(a), b).sum()
+
+    def adhoc(a, b):
+        spec = ops.GemmSpec(block=(8, 8, 8), schedule="predicated")
+        bm = ops.bitmap_scan(a, block=(8, 8), kind="act")
+        return ops.sparse_gemm(a, b, (bm, None), spec).sum()
+
+    for fn, args, code in ((rescan, (x,), "RESCAN"),
+                           (dense, (x, w), "DENSE_GEMM"),
+                           (adhoc, (x, w), "SPEC_UNRESOLVED")):
+        codes = sorted({v.code for v in trace_audit.audit_fn(
+            fn, *args, workload="plant")})
+        print(f"phase 11 audit plant {fn.__name__}: {codes}", flush=True)
+        check(code in codes, f"phase 11: planted {fn.__name__} caught as "
+                             f"{code} on the card ({codes})")
+    t0 = time.perf_counter()
+    vs, launches = launches_of(trace_audit.audit_workloads, device=dev)
+    print(f"phase 11 standard workloads {sorted(trace_audit.WORKLOADS)}: "
+          f"{len(vs)} violations, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for v in vs:
+        print(f"  {v}", flush=True)
+    check(vs == [], "phase 11: the five standard workloads audit clean")
+    return launches
+
+
+def sanitizer_phase(dev):
+    """(c) The kernel sweep on the card, clean and planted, and whether
+    compute-sanitizer can run here."""
+    from repro_torch.analysis import kernel_sanitizer as ks
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.load(shadow=True)
+    print(f"phase 11 shadow build: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    plain = ks.sweep(dev, shadow=False)
+    guard_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sw = ks.sweep(dev)
+    both_s = time.perf_counter() - t0
+    print(f"phase 11 sweep: guard bands and poison {guard_s:.2f} s "
+          f"({len(plain.violations)} violations); with the shadow build's "
+          f"store counts {both_s:.2f} s ({len(sw.violations)} violations); "
+          f"launches {dict(sw.launches)}", flush=True)
+    for v in sw.violations + plain.violations:
+        print(f"  {v}", flush=True)
+    check(sw.violations == [] and plain.violations == [],
+          "phase 11: the kernel sweep is clean on the card")
+    bad = sw.bad_errors()
+    check(not bad, f"phase 11: every swept kernel equals its plain version "
+                   f"({bad or len(sw.errors)} cases)")
+    for name in SWEEP_KERNELS:
+        check(sw.launches[name] > 0,
+              f"phase 11: the sweep launched {name} ({sw.launches[name]})")
+    for name, code in SWEEP_PLANTS.items():
+        t0 = time.perf_counter()
+        got = ks.plant(name, dev)
+        codes = sorted({v.code for v in got.violations})
+        print(f"phase 11 sweep plant {name}: {codes} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        if code is None:
+            check(codes == [] and not got.bad_errors()
+                  and got.queue is not None and got.queue[2] == 16
+                  and list(got.queue[0]) == [0, 0, 0, 0, 1],
+                  f"phase 11: plant {name} absorbed by the overflow "
+                  f"fallback (n_live 16, ii [0, 0, 0, 0, 1])")
+        else:
+            check(code in codes, f"phase 11: plant {name} caught as {code}")
+    t0 = time.perf_counter()
+    status = ks.compute_sanitizer_status()
+    print(f"phase 11 compute-sanitizer (memcheck, racecheck, initcheck): "
+          f"{status} ({time.perf_counter() - t0:.1f} s); "
+          + ("not used by the sweep" if status == "usable"
+             else "left out of the sweep"), flush=True)
+
+
+def analysis_phase(dev):
+    """Phase 11: returns the launches of each of its paths."""
+    from repro_torch.analysis import lint
+
+    t0 = time.perf_counter()
+    by_path = {f"audit_{net}": audited_step(dev, net) for net in PATHS}
+    by_path["audit_workloads"] = audit_plants(dev)
+    sanitizer_phase(dev)
+    t1 = time.perf_counter()
+    vs = lint.lint_paths([os.path.join(SRC, "repro_torch")])
+    print(f"phase 11 lint of src/repro_torch: {len(vs)} violations "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    for v in vs:
+        print(f"  {v}", flush=True)
+    check(vs == [], "phase 11: src/repro_torch lints clean")
+    print(f"phase 11 (the verifier): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return by_path
+
+
 def main():
     try:
         import torch
@@ -3867,6 +4092,7 @@ def main():
     by_path.update(lm_families_phase(dev))
     by_path.update(slice9_phase(dev))
     by_path.update(dp_phase(dev))
+    by_path.update(analysis_phase(dev))
 
     mm_cu = "src/repro_torch/csrc/masked_matmul.cu"
     mm_py = "src/repro/kernels/masked_matmul.py"

@@ -1,7 +1,8 @@
 """Kernel audits — the port of the reference's ``benchmarks/kernel_audit.py``
 tables that need no autotuner: block-skip capture rate on real traces,
 queue-construction cost, the bitmap-op budget of a training step, the
-launch-shape table and the depthwise gate.
+launch-shape table, the depthwise gate and the contract audit (the rows of
+``python -m repro_torch.analysis``).
 
 Every table takes the ``Capture`` the run was given and computes on its
 device: on a CUDA device the GEMMs, encoders and queue builders run
@@ -11,6 +12,7 @@ table whose contract breaks raises, and ``run.py`` fails named tables.
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import List, Tuple
 
@@ -471,3 +473,32 @@ def depthwise_audit(cap: Capture = Capture()) -> Tuple[List[dict], str]:
     return rows, (
         f"dense_fallbacks={fallbacks} dw_layers={n_dw} "
         f"grouped_grads_exact={all_exact} finite={finite}")
+
+
+def contract_audit(cap: Capture = Capture()) -> Tuple[List[dict], str]:
+    """The bitmap-contract verifier as a results table: one row per
+    checker×workload with its violation count — the rows ``python -m
+    repro_torch.analysis`` gates on, run on ``cap.device``.  All counts must
+    be zero; any violation fails the table."""
+    from repro_torch.analysis import kernel_sanitizer as ks
+    from repro_torch.analysis import lint, trace_audit
+
+    dev = resolve_device(cap.device)
+    rows: List[dict] = []
+    all_violations = []
+
+    def row(checker, workload, vs):
+        all_violations.extend(vs)
+        rows.append({"checker": checker, "workload": workload,
+                     "violations": len(vs),
+                     "codes": ";".join(sorted({v.code for v in vs})) or "-"})
+
+    for name in sorted(trace_audit.WORKLOADS):
+        row("trace", name, trace_audit.audit_workloads([name], device=dev))
+    row("kernel", "sweep", ks.sanitize_all(dev))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    row("lint", "src/repro_torch", lint.lint_paths([root]))
+
+    assert not all_violations, \
+        [f"{v.checker}:{v.code}@{v.where}" for v in all_violations]
+    return rows, f"checkers=3 rows={len(rows)} violations=0"

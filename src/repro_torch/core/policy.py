@@ -91,6 +91,7 @@ class SparsityPolicy:
             groups=groups,
             schedule=schedule,
             queue_builder=self.queue_builder,
+            origin="policy",
         )
         if self.autotune:
             # resolve() applies the quarantine clamp inside the cache.

@@ -72,6 +72,14 @@
 // blocks over the flat (G, M, N) workspace across the groups (each group's
 // tile is 1-32 outputs); the standard path keeps one tile per grid x so
 // that tile_of decides the schedule and the overflow on the device.
+//
+// Shadow build.  Compiled with -DREPRO_SHADOW (a second library, built by
+// kernels/_build.py for analysis/kernel_sanitizer.py alone), every store to
+// out and to the split-K workspace adds 1 to a per-element write counter,
+// and every workspace load of an element never written adds 1 to a count of
+// unwritten reads: the DOUBLE_WRITE and ACC_READ_BEFORE_WRITE checks.  The
+// counters are armed with shadow_arm (below); without the macro the hooks
+// are empty and the kernels compile to the default build's code.
 #include <cuda_runtime.h>
 
 namespace {
@@ -99,6 +107,45 @@ enum { kStandard = 0, kGroupRows = 1, kGroupK = 2 };       // path
 // issues every launch on PyTorch's current stream.
 __device__ int g_emit_nan = 0;
 __device__ unsigned g_fixup_done = 0;
+
+#ifdef REPRO_SHADOW
+// The armed buffers: writes of out[0, out_n) and ws[0, ws_n) counted per
+// element; loads of ws elements whose count is 0 counted in *unwritten.
+struct Shadow {
+  const float* out;
+  long long out_n;
+  int* out_writes;
+  const float* ws;
+  long long ws_n;
+  int* ws_writes;
+  int* unwritten;
+};
+__device__ Shadow g_shadow;
+
+__device__ __forceinline__ void shadow_count(const float* base, long long n,
+                                             int* writes, const float* q) {
+  if (writes != nullptr && q >= base && q < base + n)
+    atomicAdd(&writes[q - base], 1);
+}
+__device__ __forceinline__ void shadow_out(const float* q) {
+  shadow_count(g_shadow.out, g_shadow.out_n, g_shadow.out_writes, q);
+}
+__device__ __forceinline__ void shadow_ws_write(const float* q) {
+  shadow_count(g_shadow.ws, g_shadow.ws_n, g_shadow.ws_writes, q);
+}
+__device__ __forceinline__ void shadow_ws_read(const float* q, int cnt) {
+  const Shadow& s = g_shadow;
+  if (s.ws_writes == nullptr) return;
+  for (int e = 0; e < cnt; ++e)
+    if (q + e >= s.ws && q + e < s.ws + s.ws_n &&
+        atomicAdd(&s.ws_writes[q + e - s.ws], 0) == 0)
+      atomicAdd(s.unwritten, 1);
+}
+#else
+__device__ __forceinline__ void shadow_out(const float*) {}
+__device__ __forceinline__ void shadow_ws_write(const float*) {}
+__device__ __forceinline__ void shadow_ws_read(const float*, int) {}
+#endif
 
 struct GemmArgs {
   const float* A;
@@ -200,6 +247,7 @@ __device__ __forceinline__ void emit(const GemmArgs& p, long long o, int g,
                                      int m, int n, float v) {
   if (p.mult != nullptr) v *= p.mult[o];
   p.out[o] = v;
+  shadow_out(&p.out[o]);
   if (p.bits != nullptr) emit_bit(p, g, m, n, v);
 }
 
@@ -311,14 +359,18 @@ masked_gemm_kernel(const GemmArgs p) {
       float v = acc[r][c];
       if (kSplit) {
         ws[o] = v;
+        shadow_ws_write(&ws[o]);
         continue;
       }
       if (p.mult != nullptr) v *= p.mult[o];
       if (kOutCompact) {
-        p.out[((long long)blockIdx.x * p.bm + (m - i * p.bm)) * p.bn +
-              (n - j * p.bn)] = v;
+        float* d = &p.out[((long long)blockIdx.x * p.bm + (m - i * p.bm)) *
+                              p.bn + (n - j * p.bn)];
+        *d = v;
+        shadow_out(d);
       } else {
         p.out[o] = v;
+        shadow_out(&p.out[o]);
       }
       if (p.bits != nullptr) emit_bit(p, g, m, n, v);
     }
@@ -460,6 +512,7 @@ group_k_kernel(const GemmArgs p) {
       const long long o = ((long long)g * p.M + m) * p.N + n;
       if (ws != nullptr) {
         ws[o] = v;
+        shadow_ws_write(&ws[o]);
       } else {
         emit(p, o, g, m, n, v);
       }
@@ -485,6 +538,7 @@ __global__ void queue_member_kernel(const int* __restrict__ q_fi,
 // whole, 16-byte aligned floats, else cnt scalar loads.  Loads go out in
 // batches of kReduceLoads, all of a batch before its adds.
 __device__ __forceinline__ float4 ws_load(const float* w, bool vec, int cnt) {
+  shadow_ws_read(w, vec ? 4 : cnt);
   if (vec) return *reinterpret_cast<const float4*>(w);
   float4 r;
   r.x = w[0];
@@ -617,6 +671,7 @@ splitk_reduce_kernel(const GemmArgs p) {
                                    p.bn + (n - j * p.bn)
                      : p.out + o;
     *reinterpret_cast<float4*>(dst) = v;
+    for (int e = 0; e < 4; ++e) shadow_out(dst + e);
     if (p.bits == nullptr) return;
     if (p.path == kStandard && p.ec % 4 == 0) {
       const float a = fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
@@ -644,8 +699,10 @@ splitk_reduce_kernel(const GemmArgs p) {
       float x = lane4(v, e);
       if (p.mode == kCompactOut) {
         if (p.mult != nullptr) x *= p.mult[o + e];
-        p.out[((long long)blockIdx.x * p.bm + (m - i * p.bm)) * p.bn +
-              (n - j * p.bn)] = x;
+        float* d = &p.out[((long long)blockIdx.x * p.bm + (m - i * p.bm)) *
+                              p.bn + (n - j * p.bn)];
+        *d = x;
+        shadow_out(d);
       } else {
         emit(p, o + e, g, m, n, x);
       }
@@ -955,3 +1012,18 @@ extern "C" int emit_nan_fixup_launch(const float* out, int* bits, int G,
   return launch_fixup(out, bits, G, M, N, er, ec, true,
                       (cudaStream_t)stream);
 }
+
+#ifdef REPRO_SHADOW
+// Shadow build only: arm (or, with null counters, disarm) the write
+// counters for the launches that follow on this device.  out_writes counts
+// (out_n,) int32 and ws_writes (ws_n,) int32, zero-filled by the caller;
+// unwritten is one int32.  Returns the cudaError_t of the copy.
+extern "C" int shadow_arm(const float* out, long long out_n, int* out_writes,
+                          const float* ws, long long ws_n, int* ws_writes,
+                          int* unwritten, void* stream) {
+  const Shadow s{out, out_n, out_writes, ws, ws_n, ws_writes, unwritten};
+  return (int)cudaMemcpyToSymbolAsync(g_shadow, &s, sizeof(s), 0,
+                                      cudaMemcpyHostToDevice,
+                                      (cudaStream_t)stream);
+}
+#endif

@@ -7,6 +7,12 @@ one shared library with a plain C interface under ``build/repro_torch/``
 Nothing is built when a module is imported, and nothing here includes
 PyTorch's headers, CUTLASS or any downloaded code.
 
+``load(shadow=True)`` builds and loads a second library from the same
+sources with ``-DREPRO_SHADOW``: the instrumented build whose masked-GEMM
+kernels count every output and workspace store (``csrc/masked_matmul.cu``),
+for ``analysis/kernel_sanitizer.py`` alone.  Without the macro the counting
+hooks are empty, so the default build is the kernels' own code.
+
 A failed build raises: there is no fallback to the plain versions.
 """
 from __future__ import annotations
@@ -29,6 +35,7 @@ BUILD_DIR = os.path.join(_REPO, "build", "repro_torch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v"]
+SHADOW_FLAGS = ["-DREPRO_SHADOW"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,8 +52,11 @@ SIGNATURES = {
     "queue_member_launch": [_P, _P, _P, _I, _I, _P, _L, _P],
     "emit_nan_fixup_launch": [_P, _P] + [_I] * 5 + [_P],
 }
+# The shadow build's one extra entry point (csrc/masked_matmul.cu).
+SHADOW_SIGNATURES = {"shadow_arm": [_P, _L, _P, _P, _L, _P, _P, _P]}
 
 _LIB: Optional[ctypes.CDLL] = None
+_SHADOW_LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
 # What nvcc/ptxas reported for the last build (registers, spills).
 build_log: str = ""
@@ -64,17 +74,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> str:
+def _flags(shadow: bool):
+    return CFLAGS + (SHADOW_FLAGS if shadow else [])
+
+
+def library_path(shadow: bool = False) -> str:
     h = hashlib.sha256()
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(CFLAGS).encode())
-    return os.path.join(BUILD_DIR, f"repro_torch_kernels_{h.hexdigest()[:16]}.so")
+    h.update(" ".join(_flags(shadow)).encode())
+    name = "repro_torch_shadow" if shadow else "repro_torch_kernels"
+    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
-def _compile(path: str) -> None:
+def _compile(path: str, shadow: bool = False) -> None:
     global build_log
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -87,7 +102,7 @@ def _compile(path: str) -> None:
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *CFLAGS, "-c", src, "-o", obj],
+                [nvcc, *_flags(shadow), "-c", src, "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs = []
         failed = []
@@ -106,25 +121,32 @@ def _compile(path: str) -> None:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(so_tmp, path)
-    build_log = "".join(logs)
+    if not shadow:
+        build_log = "".join(logs)
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this source hash has no
-    library yet.  Raises on a failed build."""
-    global _LIB
+def load(shadow: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (with ``shadow``, the instrumented one),
+    built first if this source hash has no library yet.  Raises on a failed
+    build."""
+    global _LIB, _SHADOW_LIB
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        path = library_path()
+        lib = _SHADOW_LIB if shadow else _LIB
+        if lib is not None:
+            return lib
+        path = library_path(shadow)
         if not os.path.exists(path):
-            _compile(path)
+            _compile(path, shadow)
         lib = ctypes.CDLL(path)
-        for name, argtypes in SIGNATURES.items():
+        sigs = dict(SIGNATURES, **(SHADOW_SIGNATURES if shadow else {}))
+        for name, argtypes in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _LIB = lib
+        if shadow:
+            _SHADOW_LIB = lib
+        else:
+            _LIB = lib
         return lib
 
 

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, stats
 from .relu_encode import launch_encoder
 from .shapes import block_bitmap
 
@@ -63,4 +63,5 @@ def bitmap_scan(x: torch.Tensor, gran: Tuple[int, int]) -> torch.Tensor:
                        device=x.device)
     launch_encoder(lib.bitmap_scan_launch, x, x.stride(0), None, bits, gran)
     launches += 1
+    stats.note_kernel("bitmap_scan", (x,), (bits,))
     return bits

@@ -78,7 +78,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build, ref
+from . import _build, ref, stats
 from .shapes import ceil_to, grid_shape
 
 # Kernel launches since the last reset (plain-version calls are not counted).
@@ -474,11 +474,14 @@ def _launch(mode, a, b, out, bits, out_mask, a_mask, b_mask, mult, fi, jj,
     g, m, _ = a.shape
     if g * m * b.shape[2] == 0 or (mode != _PREDICATED and capacity == 0):
         return
-    args, reduce_args, splits, (_ws, member) = launch_args(
+    args, reduce_args, splits, (ws, member) = launch_args(
         mode, a, b, out, bits, out_mask, a_mask, b_mask, mult, fi, jj,
         n_live, capacity, block, emit_gran)
     lib = _build.load()
     _build.check(lib.masked_gemm_launch(*args), "masked_gemm")
+    stats.note_kernel("masked_gemm",
+                      (a, b, out_mask, a_mask, b_mask, mult, fi, jj, n_live),
+                      (out, bits, ws, member))
     if member is not None:
         queue_member_launches += 1
     if splits > 1:
@@ -526,6 +529,7 @@ def queue_member(fi: torch.Tensor, jj: torch.Tensor, n_live: torch.Tensor,
         "queue_member")
     if fi.numel() > 0:
         queue_member_launches += 1
+        stats.note_kernel("queue_member", (fi, jj, n_live), (member,))
     return member
 
 
@@ -553,6 +557,7 @@ def emit_nan_fixup(out: torch.Tensor, bits: torch.Tensor,
         _build.stream_handle(out.device)), "emit_nan_fixup")
     if g * m * n > 0:
         emit_fixup_launches += 1
+        stats.note_kernel("emit_nan_fixup", (out, bits), (bits,))
     return bits
 
 

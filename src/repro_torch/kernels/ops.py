@@ -30,8 +30,9 @@ per emitted bitmap) and offers its live-tile fractions to the autotuner
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -81,7 +82,13 @@ class GemmMasks(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class GemmSpec:
     """One masked GEMM, fully described as static metadata (see
-    ``repro.kernels.ops.GemmSpec``)."""
+    ``repro.kernels.ops.GemmSpec``).
+
+    ``origin`` records who resolved the spec: ``"policy"`` when it came out
+    of ``SparsityPolicy.gemm_spec()`` (the one sanctioned resolution
+    point), ``"adhoc"`` otherwise.  It is provenance for the trace audit's
+    SPEC_UNRESOLVED check, kept out of equality and hashing so that a
+    policy-resolved spec and its ad-hoc twin stay interchangeable."""
     block: Tuple[int, int, int] = DEFAULT_BLOCK
     groups: int = 1
     schedule: str = "predicated"
@@ -90,6 +97,7 @@ class GemmSpec:
     queue_builder: str = "prefix_sum"
     max_active_blocks: Optional[int] = None
     out_dtype: Any = torch.float32
+    origin: str = dataclasses.field(default="adhoc", compare=False)
 
     def __post_init__(self):
         if self.schedule not in SCHEDULES:
@@ -196,6 +204,24 @@ def _tamper(site: str, value):
     return value if _TAMPER_HOOK is None else _TAMPER_HOOK(site, value)
 
 
+# Spec provenance for the trace audit: while a ``collect_gemm_events()``
+# context is open, every ``sparse_gemm`` dispatch appends its spec here.
+_GEMM_EVENTS: Optional[List[GemmSpec]] = None
+
+
+@contextlib.contextmanager
+def collect_gemm_events():
+    """Record the ``GemmSpec`` of every ``sparse_gemm`` dispatch run inside
+    the context — the audit runs a step under this and then asserts each
+    spec's provenance (``origin == "policy"``)."""
+    global _GEMM_EVENTS
+    prev, _GEMM_EVENTS = _GEMM_EVENTS, []
+    try:
+        yield _GEMM_EVENTS
+    finally:
+        _GEMM_EVENTS = prev
+
+
 def sparse_gemm(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -235,6 +261,8 @@ def sparse_gemm(
                 f"{spec.groups}")
         a3, b3, mult3 = a, b, epilogue_mult
     stats.record(spec.stats_key)
+    if _GEMM_EVENTS is not None:
+        _GEMM_EVENTS.append(spec)
     if spec.emits_bitmap:
         stats.record("emit:grad")
     _observe_live_tiles(spec, a3, b3, masks)

@@ -85,6 +85,7 @@ def build_queue_kernel(bitmap: torch.Tensor, *, capacity: int) -> Queue:
                                    _build.stream_handle(bitmap.device))
     _build.check(err, "build_queue")
     launches += 1
+    stats.note_kernel("queue_builder", (bitmap,), (buf,))
     return ii, jj, n_live
 
 

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, stats
 from .shapes import block_bitmap
 
 # Kernel launches since the last reset (plain-version calls are not counted).
@@ -152,4 +152,5 @@ def relu_encode(z: torch.Tensor, gran: Tuple[int, int]
                        device=z.device)
     launch_encoder(lib.relu_encode_launch, zf, n, y, bits, gran)
     launches += 1
+    stats.note_kernel("relu_encode", (zf,), (y, bits))
     return y.to(z.dtype), bits

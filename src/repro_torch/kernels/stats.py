@@ -20,7 +20,11 @@ string, so a test can compare the two packages' count dicts directly:
 PyTorch runs eagerly, so one forward+backward records exactly one step's
 events.  The lifecycle scopes become ``torch.profiler.record_function``
 ranges under the reference's ``repro:<kind>[:<detail>]:<seq>`` and
-``layer:<name>`` names, so a profiler trace carries the same tags.
+``layer:<name>`` names, so a profiler trace carries the same tags; the open
+tags are also on a stack (``open_tags``) that the trace audit
+(``repro_torch.analysis.trace_audit``) reads for every op it logs, and the
+kernel wrappers note each launch's operands and results
+(``note_kernel``) for it.
 
 An event decided on the device (a queue overflow on the card, the
 optimizer's non-finite skip) is added into a device-resident counter with
@@ -203,14 +207,55 @@ def live_tile_keys() -> list:
 # ---------------------------------------------------------------------------
 
 _SCOPE_SEQ = itertools.count()
+# The open lifecycle tags, outermost first: what the trace audit
+# (``repro_torch.analysis.trace_audit``) reads for every op it logs.  One
+# stack for the process, not one a thread: on the card the autograd engine
+# runs the backward on its own device thread while the calling thread
+# waits, and the tags a backward opens must reach the ops it issues there.
+_TAGS: List[str] = []
 
 
+@contextlib.contextmanager
 def lifecycle_scope(kind: str, detail: str = ""):
     """A ``torch.profiler.record_function`` range carrying one bitmap-
-    lifecycle event tag, ``repro:<kind>[:<detail>]:<seq>``."""
+    lifecycle event tag, ``repro:<kind>[:<detail>]:<seq>``, which is also
+    on ``open_tags()`` while the range is open."""
     parts = ["repro", kind] + ([detail] if detail else []) \
         + [str(next(_SCOPE_SEQ))]
-    return torch.profiler.record_function(":".join(parts))
+    tag = ":".join(parts)
+    _TAGS.append(tag)
+    try:
+        with torch.profiler.record_function(tag):
+            yield
+    finally:
+        _TAGS.pop()
+
+
+def open_tags() -> Tuple[str, ...]:
+    """The open lifecycle tags, outermost first."""
+    return tuple(_TAGS)
+
+
+# The kernel wrappers launch through ctypes, which PyTorch's dispatcher
+# never sees; each notes its operands and results here, so an installed
+# hook (the trace audit's) follows the dataflow through the kernel as it
+# follows a plain version's aten ops.  None (the default) costs one test.
+_KERNEL_HOOK = None
+
+
+def set_kernel_hook(fn):
+    """Install (or, with None, remove) the kernel-launch hook; returns the
+    previous one.  The hook receives ``(name, inputs, outputs)``: the
+    tensors a launch read and wrote (None entries allowed)."""
+    global _KERNEL_HOOK
+    prev, _KERNEL_HOOK = _KERNEL_HOOK, fn
+    return prev
+
+
+def note_kernel(name: str, inputs, outputs) -> None:
+    """Offer one kernel launch's operands and results to the hook."""
+    if _KERNEL_HOOK is not None:
+        _KERNEL_HOOK(name, inputs, outputs)
 
 
 _LAYERS: List[str] = []

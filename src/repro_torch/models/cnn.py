@@ -108,9 +108,7 @@ def apply_conv(p: Params, x_pre: torch.Tensor, node: ConvNode,
             # On CPU tensors, as in the reference: a group structure other
             # than one weight per channel leaves through this counted
             # escape, so a run can assert the sparse path lost no layer.
-            stats.record("conv:dense_fallback")
-            with stats.lifecycle_scope("fallback", "conv_dense"):
-                y = _dense_depthwise(p["w"], x_pre, node, input_is_relu)
+            y = _dense_depthwise(p["w"], x_pre, node, input_is_relu)
         elif input_is_relu:
             y = depthwise_relu_conv(x_pre, p["w"], node.stride,
                                     node.padding, policy)
@@ -129,15 +127,19 @@ def apply_conv(p: Params, x_pre: torch.Tensor, node: ConvNode,
 def _dense_depthwise(w: torch.Tensor, x_pre: torch.Tensor, node: ConvNode,
                      input_is_relu: bool) -> torch.Tensor:
     """Plain grouped conv (groups = C) of NHWC x with HWIO w, with the
-    reference's explicit SAME/VALID padding."""
-    x = torch.relu(x_pre) if input_is_relu else x_pre
-    _, h, wd, c = x.shape
-    r, s = w.shape[0], w.shape[1]
-    hlo, hhi = _pad_amounts(h, r, node.stride, node.padding)
-    wlo, whi = _pad_amounts(wd, s, node.stride, node.padding)
-    xp = F.pad(x, (0, 0, wlo, whi, hlo, hhi)).permute(0, 3, 1, 2)
-    y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=node.stride, groups=c)
-    return y.permute(0, 2, 3, 1)
+    reference's explicit SAME/VALID padding — the counted dense fallback
+    (``conv:dense_fallback``, inside a ``fallback`` lifecycle region)."""
+    stats.record("conv:dense_fallback")
+    with stats.lifecycle_scope("fallback", "conv_dense"):
+        x = torch.relu(x_pre) if input_is_relu else x_pre
+        _, h, wd, c = x.shape
+        r, s = w.shape[0], w.shape[1]
+        hlo, hhi = _pad_amounts(h, r, node.stride, node.padding)
+        wlo, whi = _pad_amounts(wd, s, node.stride, node.padding)
+        xp = F.pad(x, (0, 0, wlo, whi, hlo, hhi)).permute(0, 3, 1, 2)
+        y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=node.stride,
+                     groups=c)
+        return y.permute(0, 2, 3, 1)
 
 
 def apply_pool(x: torch.Tensor, node: PoolNode) -> torch.Tensor:

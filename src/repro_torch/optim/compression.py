@@ -1,23 +1,27 @@
 """int8 error-feedback gradient compression for the data-parallel
 all-reduce — the port of ``repro.optim.compression``.
 
-int8 quantization with a per-tensor scale cuts an f32 all-reduce's bytes
-4×; error feedback (the residual carried to the next step) keeps the
-compressed trajectory tracking the exact one (Karimireddy et al., 2019).
-``compressed_psum`` quantizes (with error feedback), all-reduces the
-dequantized payload (each rank's scale differs, so the sum of the
-dequantized tensors is what is reduced) and returns the mean with the new
-error state.  As in the reference, no training path uses it.
+int8 quantization with a per-tensor scale, and error feedback (the
+residual carried to the next step) that keeps the compressed trajectory
+tracking the exact one (Karimireddy et al., 2019).  ``compressed_psum``
+quantizes (with error feedback), all-reduces the DEQUANTIZED payload and
+returns the mean with the new error state.  The wire carries float32, as
+the reference's ``psum(q.astype(jnp.float32) * scale)`` does: each rank's
+scale differs, so the sum of the dequantized tensors is what is reduced,
+and the bytes moved are those of an f32 all-reduce.  The reduce goes
+through ``sharding.collectives`` inside a ``collective`` region, so its
+bytes count in ``collectives.wire_bytes()``.  As in the reference, no
+training path uses it.
 """
 from __future__ import annotations
 
 from typing import Any, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import tree as _tree
-from repro_torch.sharding import partition
+from repro_torch.kernels import stats
+from repro_torch.sharding import collectives, partition
 
 
 def quantize(g: torch.Tensor, err: torch.Tensor
@@ -41,16 +45,15 @@ def init_error_state(grads: Any) -> Any:
 
 
 def compressed_psum(grads: Any, err: Any, mesh, axes) -> Tuple[Any, Any]:
-    """Mean all-reduce of ``grads`` over ``axes`` of ``mesh`` with an int8
-    payload.  Returns (mean_grads_f32, new_err)."""
+    """Mean all-reduce of ``grads`` over ``axes`` of ``mesh`` of the int8-
+    quantized, dequantized gradients (f32 on the wire).  Returns
+    (mean_grads_f32, new_err)."""
     n = partition.axis_size(mesh, axes)
-    group = mesh.group(axes)
 
     def one(g, e):
         q, scale, e1 = quantize(g, e)
-        summed = dequantize(q, scale)
-        if group is not None:
-            dist.all_reduce(summed, group=group)
+        with stats.lifecycle_scope("collective", "int8"):
+            summed = collectives._reduce(dequantize(q, scale), mesh, axes)
         return summed / n, e1
 
     pairs = [one(g, e) for g, e in zip(_tree.leaves(grads),

@@ -813,3 +813,32 @@ def test_chaos_matrix_on_card(dev):
     from repro_torch.runtime import faults
     rows = faults.run_matrix(device="cuda")
     assert [r.ok for r in rows] == [True] * 7, [r.detail for r in rows]
+
+
+def test_kernel_sweep_on_card(dev):
+    """The sanitizer's sweep through the C entry points: guard bands,
+    poison and the shadow build's store counts all clean, every kernel of
+    the table launched, each equal to its plain version."""
+    from repro_torch.analysis import kernel_sanitizer as ks
+    sw = ks.sweep(dev)
+    assert sw.violations == [] and sw.bad_errors() == {}
+    for name in ("relu_encode", "queue_builder", "compact_gemm",
+                 "predicated_gemm", "splitk_reduce", "queue_member",
+                 "emit_nan_fixup", "bitmap_scan", "masked_matmul_2d",
+                 "compact_masked_matmul_2d"):
+        assert sw.launches[name] > 0, name
+
+
+@pytest.mark.parametrize("plant,code", [
+    ("short_output", "STORE_OOB"), ("duplicate_slot", "DOUBLE_WRITE"),
+    ("extra_split", "ACC_READ_BEFORE_WRITE"),
+    ("queue_short", "QUEUE_WRITE_OOB"),
+    ("tiles_overstated", "DUMP_SLOT_LEAK")])
+def test_kernel_plants_caught_on_card(dev, plant, code):
+    from repro_torch.analysis import kernel_sanitizer as ks
+    assert code in {v.code for v in ks.plant(plant, dev).violations}
+
+
+def test_audit_workloads_clean_on_card(dev):
+    from repro_torch.analysis import trace_audit
+    assert trace_audit.audit_workloads(device=dev) == []
