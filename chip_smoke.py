@@ -119,7 +119,20 @@ Phases (any failure makes the exit code nonzero):
      DENSE_GEMM, SPEC_UNRESOLVED); the five standard workloads clean; the
      kernel sweep (guard bands, poison, the shadow build's store counts)
      over every kernel of the table, clean, and its planted faults caught;
-     whether compute-sanitizer can run; the lint of src/repro_torch clean.
+     whether compute-sanitizer can run; the lint of src/repro_torch clean;
+ 12. the dry run, the analytic cost model and the roofline
+     (``repro_torch.launch.dryrun``, ``launch.flops``,
+     ``launch.hlo_analysis``, ``benchmarks.roofline``): two dry runs start
+     with phase 8 and run on the host's cores beside phases 8-11 at the
+     lowest priority — every SMOKE cell of the registry (10 archs x 4
+     shapes x both production meshes, 0 failed, the 14 long_500k skips)
+     and the full-width train_4k, decode_32k and long_500k cells of all
+     ten archs, each step traced on meta tensors; the measured paths of phases 7-9 (SmolLM-360M's and
+     internvl2-1b's steps, the gemma3-12b, deepseek-v2-lite and xlstm-350m
+     ticks) each at or above its analytic bound on the H100's peaks, in a
+     roofline table; phase 10's profiled SmolLM step, whose traced
+     all-reduce bytes must equal collectives.wire_bytes(), beside the
+     analytic all-reduce bytes.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, it exits nonzero and prints no result.
@@ -183,6 +196,12 @@ FAILURES = []
 STEP_MS = {}
 # kernel_phase's (report, encoder_detail), for phase 7's step audit.
 REPORTERS = []
+# Phase 12's readings of earlier phases: each measured path's (config,
+# shape, dtype its GEMMs compute in, measured ms) from phases 7-9, phase
+# 10's profiled SmolLM step in each rank, and its NCCL world's events.
+MEASURED = {}
+DP_TRACE = []
+NCCL_TRACE = {}
 
 
 def check(ok, what):
@@ -1930,6 +1949,8 @@ def lm_phase(dev):
 
     step_ms = [(t1 - t0) * 1e3 for t0, t1 in zip(ts_a, ts_a[1:])]
     med = statistics.median(step_ms[2:6])
+    MEASURED["SmolLM-360M step"] = (cfg, path_shape(LM_SEQ, LM_BATCH,
+                                                    "train"), "float32", med)
     print(f"{LM_ARCH}: {n_params / 1e6:.1f} M params, batch {LM_BATCH} x "
           f"{LM_SEQ}; run A losses {losses_a}; step ms {step_ms}; median "
           f"of steps 2-5 {med:.1f} ms; peak memory {peak_gb:.2f} GiB",
@@ -2508,6 +2529,9 @@ def internvl2_phase(dev):
     losses, ms, _, launches, peak, _ = timed_steps(dev, cfg, params,
                                                    INTERNVL2_STEPS)
     report_steps(tag, cfg, n_params(params), losses, ms, peak)
+    MEASURED["internvl2-1b step"] = (cfg, path_shape(FAM_SEQ, FAM_BATCH,
+                                                     "train"), "float32",
+                                     statistics.median(ms[1:]))
     check(sum(launches.values()) == 0,
           f"{tag}: the GLU FFN launches none of the sparse kernels")
     torch.cuda.empty_cache()
@@ -2665,6 +2689,10 @@ GEMMA3_PERIOD = 6                    # one period, LLLLLG
 GEMMA3_DECODE_T = 1100               # past the window of 1,024: the ring wraps
 GEMMA3_TRAIN_T, GEMMA3_STEPS = 4096, 3
 XLSTM_BATCH, XLSTM_SEQ, XLSTM_STEPS, XLSTM_CUT = 8, 512, 5, 3
+# The train_loop's depth, cut from 24 so that the script keeps its time
+# with phase 12's dry runs after phase 11 (its two runs took ~150 s of
+# the 24-layer stack; the sLSTM time loop is host-bound).
+XLSTM_TRAIN_LAYERS = 12
 # Past two mLSTM chunks of 64; the parallel forward needs a multiple of the
 # chunk (the reference asserts it), so 192 rather than 160.
 XLSTM_DECODE = (2, 192)
@@ -2736,6 +2764,7 @@ def serve_phase(dev, tag, cfg, params):
     answered with SERVE['tokens']; every tick timed.  Returns the median
     tick ms."""
     import torch
+    from repro_torch.benchmarks.roofline import path_row
     from repro_torch.serving.engine import GenRequest, ServeEngine
 
     gb = param_gb(params)
@@ -2757,11 +2786,18 @@ def serve_phase(dev, tag, cfg, params):
     done = eng.done
     n_tok = sum(len(v) for v in done.values())
     med = statistics.median(ticks)
+    # the tick's analytic bound at its own shape: a token for each slot
+    # over caches of max_len positions (launch.flops, the H100's peaks)
+    dtype = str(params["embed"].dtype).replace("torch.", "")
+    shape = path_shape(SERVE["max_len"], SERVE["slots"], "decode")
+    MEASURED[f"{tag} tick"] = (cfg, shape, dtype, med)
+    row = path_row(f"{tag} tick", cfg, shape, med, dtype=dtype)
     print(f"{tag} serving: {len(done)}/{SERVE['requests']} requests, "
           f"{len(ticks)} ticks, {n_tok} tokens; tick ms median {med:.2f} "
           f"(min {min(ticks):.2f}, first {ticks[0]:.1f}); {n_tok / run_s:.1f} "
-          f"tokens/s; weights {gb:.2f} GB -> tick bound {gb / 3.35:.2f} ms "
-          f"at 3.35 TB/s; peak memory "
+          f"tokens/s; weights {gb:.2f} GB; tick bound {row['bound_ms']:.2f} "
+          f"ms ({row['dominant']}: {row['bytes']:.3e} B, {row['flops']:.3e} "
+          f"FLOPs); peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB",
           flush=True)
     check(len(done) == SERVE["requests"]
@@ -2930,9 +2966,11 @@ def gemma3_phase(dev):
 
 
 def xlstm_phase(dev):
-    """xlstm-350m at full width and depth, f32: five ``train_loop`` steps with a checkpoint after three and a resume; the
-    first step against float64 with two planted faults; serving and decode
-    against the parallel forward."""
+    """xlstm-350m at full width, f32: five ``train_loop`` steps with a
+    checkpoint after three and a resume at XLSTM_TRAIN_LAYERS layers; the
+    first step against float64 with two planted faults at 4 layers and at
+    full depth; serving and decode at full depth against the parallel
+    forward."""
     import shutil
     import torch
     from repro_torch import tree
@@ -2953,7 +2991,8 @@ def xlstm_phase(dev):
     shutil.rmtree(ckdir, ignore_errors=True)
     t0 = time.perf_counter()
     stamps = [t0]
-    out = train_loop(cfg, tcfg, batch_size=XLSTM_BATCH, seq_len=XLSTM_SEQ,
+    cut = cfg.with_(n_layers=XLSTM_TRAIN_LAYERS)
+    out = train_loop(cut, tcfg, batch_size=XLSTM_BATCH, seq_len=XLSTM_SEQ,
                      steps=XLSTM_STEPS, ckpt_dir=ckdir, log_every=0,
                      device=dev, on_metrics=lambda i, m: stamps.append(
                          time.perf_counter()))
@@ -2964,8 +3003,8 @@ def xlstm_phase(dev):
     # between metric reads (each a sync); the interval after step 3 holds
     # its checkpoint save
     ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    print(f"{tag}: {size / 1e6:.1f} M params, {cfg.n_layers} layers "
-          f"{cfg.pattern}, f32; train_loop {XLSTM_STEPS} steps at "
+    print(f"{tag}: {size / 1e6:.1f} M params, {cut.n_layers} layers "
+          f"{cut.pattern}, f32; train_loop {XLSTM_STEPS} steps at "
           f"{XLSTM_BATCH} x {XLSTM_SEQ}: losses {losses_a}; step ms "
           f"{[round(x, 1) for x in ms]}, median of steps 2-{XLSTM_STEPS} "
           f"{statistics.median(ms[1:]):.1f}; peak memory {peak:.2f} GiB; "
@@ -2974,7 +3013,7 @@ def xlstm_phase(dev):
     saves = []
     free(dev)
     with final_save_counted(saves):
-        out = train_loop(cfg, tcfg, batch_size=XLSTM_BATCH,
+        out = train_loop(cut, tcfg, batch_size=XLSTM_BATCH,
                          seq_len=XLSTM_SEQ, steps=XLSTM_STEPS,
                          ckpt_dir=ckdir, log_every=0, device=dev)
     shutil.rmtree(ckdir, ignore_errors=True)
@@ -3427,6 +3466,21 @@ def dp_nccl_world_of_one(dev):
             check(torch.equal(out, x) and c.get(key) == 1,
                   f"NCCL world of one: sparse_psum at live {live} returns "
                   f"its input through {key}")
+        # phase 12: the event names NCCL gives the profiler
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.launch import hlo_analysis
+        collectives.reset_wire_bytes()
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            collectives.dense_psum(x, "data", mesh=mesh)
+            torch.cuda.synchronize(dev)
+        events = hlo_analysis.trace_events(prof)
+        NCCL_TRACE.update(
+            bytes=hlo_analysis.collective_bytes(events),
+            wire=collectives.wire_bytes(),
+            names=sorted({e.name() for e in events
+                          if "nccl" in e.name().lower()
+                          or e.name().startswith("c10d::")}))
     finally:
         close_mesh()
 
@@ -3658,7 +3712,22 @@ def lm_spmd_rank(device, smoke, ckdir):
                      vocab=cfg.vocab_size, device=dev)
     grad_fn = spmd_step.make_spmd_grad_fn(lambda p, b: lm_loss(p, b, cfg),
                                           mesh)
-    loss, grads = grad_fn(params, batch)
+    # phase 12: this step's collectives from the profiler's trace, beside
+    # the bytes the collectives layer counted
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import hlo_analysis
+    collectives.reset_wire_bytes()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        loss, grads = grad_fn(params, batch)
+    events = hlo_analysis.trace_events(prof)
+    out["trace"] = (hlo_analysis.collective_bytes(events,
+                                                  group_size=mesh.size),
+                    collectives.wire_bytes(),
+                    sorted({e.name() for e in events
+                            if e.name().startswith(("gloo:", "nccl:"))}))
+    del events
+    del prof
     if mesh.rank == 0:
         leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
         loss1 = lm_loss(tree.unflatten_like(params, leaves), batch, cfg)
@@ -3747,6 +3816,7 @@ def lm_spmd_phase(pool, dev, smoke=False, ckdir=None):
                         timeout=DP_CALL_S)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+    DP_TRACE[:] = [r["trace"] for r in rows]
     r0 = rows[0]
     loss_dp, loss1, worst = r0["first"]
     print(f"phase 10 {LM_ARCH} data-parallel first step: loss {loss_dp:.7f} "
@@ -4049,6 +4119,186 @@ def analysis_phase(dev):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the dry run, the analytic cost model and the roofline
+# ---------------------------------------------------------------------------
+
+# The dry runs start after the last timed phase, so that no step or tick
+# that phases 4-11 time shares the host with them (beside phases 4-5 they
+# slowed VGG16's step from 59.0 to 65.4 ms), and take the host's 8 cores:
+# every SMOKE cell of the registry on 6 workers; at full width the
+# decode_32k and long_500k cells of every architecture on one, and on one
+# more the train_4k cells of the four architectures whose steps phases 7-8
+# time or that they cut (4.5-16.3 s a trace on one core of the chip's
+# host).  The other full-width train cells (10-37 s each; xlstm-350m's
+# 137 s) and the 32k prefills (35-241 s) are left to the full run by hand
+# (PERF.md §6).  Outputs under build/dryrun/.  Each run: (name,
+# arguments, workers, records, long_500k skips); a record is a cell on
+# one of the two meshes, and the 7 archs outside LONG_CONTEXT_OK skip
+# long_500k on each.
+DRY_RUNS = (("smoke", ["--smoke"], 6, 80, 14),
+            ("full_decode", ["--shape", "decode_32k,long_500k"], 1, 40, 14),
+            ("full_train", ["--shape", "train_4k", "--arch",
+                            "smollm-360m,internvl2-1b,seamless-m4t-medium,"
+                            "deepseek-v2-lite-16b"], 1, 8, 0))
+DRY_WAIT_S = 300
+BOUND_PATHS = ("SmolLM-360M step", "internvl2-1b step", "gemma3-12b tick",
+               "deepseek-v2-lite-16b tick", "xlstm-350m tick")
+
+
+def path_shape(seq_len, batch, kind):
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig(f"{kind}_{batch}x{seq_len}", seq_len, batch, kind)
+
+
+def start_dryruns():
+    """Start the dry runs of DRY_RUNS; returns [(name, process, JSONL path,
+    log path, start)]."""
+    out = os.path.join(HERE, "build", "dryrun")
+    os.makedirs(out, exist_ok=True)
+    runs = []
+    for name, extra, jobs, _, _ in DRY_RUNS:
+        path = os.path.join(out, f"chip_smoke_{name}.jsonl")
+        if os.path.exists(path):
+            os.remove(path)
+        log = os.path.join(out, f"chip_smoke_{name}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--out", path, "--jobs", str(jobs)] + extra,
+                cwd=HERE, env=dict(os.environ, PYTHONPATH=SRC),
+                stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+        runs.append((name, proc, path, log, time.perf_counter()))
+    return runs
+
+
+def stop_dryruns(runs):
+    """Kill what is left of the dry runs (each in its own session, pool
+    workers included)."""
+    import signal
+    for _, proc, _, _, _ in runs:
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def dryrun_results(name, proc, path, log, t0):
+    """Wait for one dry run (DRY_WAIT_S from its start at most); returns
+    its records."""
+    try:
+        rc = proc.wait(timeout=max(DRY_WAIT_S - (time.perf_counter() - t0),
+                                   1))
+    except subprocess.TimeoutExpired:
+        rc = None
+    lines = open(log).read().splitlines()
+    done = next((l for l in reversed(lines) if l.startswith("done:")), "")
+    recs = [json.loads(l) for l in open(path)] if os.path.exists(path) \
+        else []
+    fails = [l for l in lines if l.startswith("[FAIL]")]
+    print(f"phase 12 dry run ({name}): rc {rc}; {done}", flush=True)
+    # a crash (no exit code of the dry run's own) shows its last lines
+    for line in fails[:10] + ([] if rc in (0, 1) else lines[-3:]):
+        print("  " + line, flush=True)
+    check(rc == 0, f"phase 12: the {name} dry run exits 0 ({rc})")
+    return recs
+
+
+def cost_phase(dev, runs):
+    """Phase 12: the dry runs' results (every SMOKE cell on both meshes;
+    full-width cells of every architecture), the measured paths of phases
+    7-9 against their analytic bounds, and phase 10's profiled steps
+    against their collective bytes.  Returns its launches (none)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.benchmarks.roofline import path_row, paths_table
+    from repro_torch.launch import flops
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    full = []
+    for run, (name, _, _, n_recs, n_skips) in zip(runs, DRY_RUNS):
+        recs = dryrun_results(*run)
+        ok = [r for r in recs if r.get("ok")]
+        skips = [r for r in recs if r.get("skipped")]
+        errors = [f"{r['arch']} x {r['shape']}" for r in ok
+                  if "count_error" in r]
+        print(f"phase 12 {name} cells: {len(ok)} ok ({len(errors)} with "
+              f"count_error {errors}), {len(recs) - len(ok) - len(skips)} "
+              f"failed, {len(skips)} skipped", flush=True)
+        check(len(recs) == n_recs and len(skips) == n_skips
+              and len(ok) == n_recs - n_skips,
+              f"phase 12: every {name} cell sized on both meshes, 0 failed, "
+              f"{n_skips} long_500k skips")
+        check(all(r["memory_source"] == "specs"
+                  and r["sources"]["counted_flops"] == "meta trace"
+                  for r in ok),
+              f"phase 12: every {name} record names its sources")
+        if name != "smoke":
+            full += ok
+    for r in full:
+        if r["mesh"] == "16x16":
+            print(f"phase 12 full width {r['arch']} x {r['shape']}: "
+                  f"{r['params_b']:.3f} B params, counted "
+                  f"{r.get('counted_flops', float('nan')):.4e} FLOPs "
+                  f"({r['count_s']} s) vs analytic "
+                  f"{r['analytic']['flops_per_device'] * r['n_chips']:.4e}; "
+                  f"arguments {r['memory']['argument_size_in_bytes'] / 2**30:.2f}"
+                  f" GiB a device, fits_hbm {r['memory']['fits_hbm']}",
+                  flush=True)
+    counted = sorted({r["arch"] for r in full if "counted_flops" in r})
+    check(len(counted) == 10,
+          f"phase 12: every architecture traced on meta at full width "
+          f"({len(counted)}: {counted})")
+
+    # bounds of the measured paths (their times are phases 7-9's)
+    rows = [path_row(name, *MEASURED[name][:2], MEASURED[name][3],
+                     dtype=MEASURED[name][2])
+            for name in BOUND_PATHS if name in MEASURED]
+    print("phase 12 roofline of the measured paths (launch.flops at each "
+          "path's own shape on one card, remat=False; measured: phases "
+          f"7-9's median step or tick, host clock; float32 peak with "
+          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+          "):\n" + paths_table(rows), flush=True)
+    check(len(rows) == len(BOUND_PATHS),
+          f"phase 12: a measured time for every path ({sorted(MEASURED)})")
+    for r in rows:
+        check(r["bound_ms"] <= r["measured_ms"],
+              f"phase 12: {r['path']} bound {r['bound_ms']:.3f} ms "
+              f"({r['dominant']}) <= measured {r['measured_ms']:.2f} ms")
+
+    # collective bytes: phase 10's profiled step against wire_bytes()
+    cfg, shape = MEASURED["SmolLM-360M step"][:2] \
+        if "SmolLM-360M step" in MEASURED else (None, None)
+    ar = flops.analytic_cost(cfg.with_(remat=False), shape, dp_n=DP_RANKS,
+                             model_n=1).detail["coll_dp_ar"] if cfg else None
+    check(len(DP_TRACE) == DP_RANKS, "phase 12: phase 10's profiled step "
+          "came back from every rank")
+    for rank, (got, wire, names) in enumerate(DP_TRACE):
+        print(f"phase 12 {LM_ARCH} data-parallel step, rank {rank}: trace "
+              f"{got} from events {names}; wire_bytes() {wire}; analytic "
+              f"coll_dp_ar at dp_n={DP_RANKS}: {ar} (a ring all-reduce "
+              f"counted 2x the tensor; the trace counts it once)",
+              flush=True)
+        check(got["all-reduce"] == wire > 0,
+              f"phase 12: rank {rank}'s traced all-reduce bytes equal "
+              f"wire_bytes() ({got['all-reduce']} vs {wire})")
+    print(f"phase 12 NCCL world of one, one dense_psum: events "
+          f"{NCCL_TRACE.get('names')}; parsed {NCCL_TRACE.get('bytes')}; "
+          f"wire_bytes() {NCCL_TRACE.get('wire')}", flush=True)
+    nccl = NCCL_TRACE.get("bytes", {}).get("all-reduce")
+    check(nccl == NCCL_TRACE.get("wire") and (nccl or 0) > 0,
+          f"phase 12: NCCL's traced all-reduce bytes equal wire_bytes() "
+          f"({nccl} vs {NCCL_TRACE.get('wire')})")
+    launches = kernels.launch_counts()
+    check(sum(launches.values()) == 0,
+          f"phase 12: the dry run and the bounds launch no kernel "
+          f"({launches})")
+    print(f"phase 12 (dry run, cost model, roofline): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -4063,12 +4313,21 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
-    from repro_torch import kernels
     from repro_torch.cnn_training import set_full_precision
-    from repro_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
     set_full_precision()
+    runs = []
+    try:
+        return run_phases(torch, dev, runs)
+    finally:
+        stop_dryruns(runs)
+
+
+def run_phases(torch, dev, runs):
+    """Phases 1-12 on ``dev``; the dry runs it starts go into ``runs``.
+    Returns the exit code."""
+    from repro_torch.kernels import _build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -4093,6 +4352,8 @@ def main():
     by_path.update(slice9_phase(dev))
     by_path.update(dp_phase(dev))
     by_path.update(analysis_phase(dev))
+    runs += start_dryruns()
+    by_path["dryrun"] = cost_phase(dev, runs)
 
     mm_cu = "src/repro_torch/csrc/masked_matmul.cu"
     mm_py = "src/repro/kernels/masked_matmul.py"

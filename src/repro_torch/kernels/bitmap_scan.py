@@ -19,6 +19,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build, stats
 from .relu_encode import launch_encoder
 from .shapes import block_bitmap
@@ -38,7 +40,7 @@ def bitmap_scan(x: torch.Tensor, gran: Tuple[int, int]) -> torch.Tensor:
     """Bitmap of a 2-D float32 or bfloat16 ``x`` at granularity ``gran``.
     Launches K5 for a CUDA tensor (a bf16 ``x`` widened to f32 for it,
     which changes no sign and no NaN); runs the plain version for a CPU
-    tensor."""
+    or meta tensor."""
     global launches
     if x.dim() != 2:
         raise ValueError(f"bitmap_scan wants a 2-D tensor, got "
@@ -49,7 +51,7 @@ def bitmap_scan(x: torch.Tensor, gran: Tuple[int, int]) -> torch.Tensor:
     gr, gc = gran
     if gr < 1 or gc < 1:
         raise ValueError(f"bad granularity {gran}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return bitmap_scan_plain(x, gran)
     if x.device.type != "cuda":
         raise ValueError(f"bitmap_scan: unsupported device {x.device}")

@@ -78,6 +78,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build, ref, stats
 from .shapes import ceil_to, grid_shape
 
@@ -521,7 +523,7 @@ def queue_member(fi: torch.Tensor, jj: torch.Tensor, n_live: torch.Tensor,
             or not member.is_contiguous():
         raise ValueError("member must be contiguous int32 on the queue's "
                          "device")
-    if fi.device.type == "cpu":
+    if fi.device.type in PLAIN_DEVICES:
         return queue_member_plain(fi, jj, n_live, member, n_cols=n_cols)
     _build.check(_build.load().queue_member_launch(
         fi.data_ptr(), jj.data_ptr(), n_live.data_ptr(), fi.numel(), n_cols,
@@ -549,7 +551,7 @@ def emit_nan_fixup(out: torch.Tensor, bits: torch.Tensor,
     the flag says.  Launches ``emit_nan_fixup_kernel`` for CUDA tensors
     (counted on ``emit_fixup_launches``)."""
     global emit_fixup_launches
-    if out.device.type == "cpu":
+    if out.device.type in PLAIN_DEVICES:
         return emit_nan_fixup_plain(out, bits, emit_gran)
     g, m, n = out.shape
     _build.check(_build.load().emit_nan_fixup_launch(
@@ -582,7 +584,7 @@ def grouped_masked_matmul_kernel(
     global predicated_launches
     out, bits = _prepare(a, b, out_mask, a_mask, b_mask, block,
                          epilogue_mult, emit_gran, out, bits)
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES:
         return grouped_masked_matmul_plain(
             a, b, out_mask, a_mask, b_mask, block=block,
             epilogue_mult=epilogue_mult, emit_gran=emit_gran, out=out,
@@ -618,7 +620,7 @@ def grouped_compact_masked_matmul_kernel(
     out, bits = _prepare(a, b, None, a_mask, b_mask, block, epilogue_mult,
                          emit_gran, out, bits)
     _check_queue(fi, jj, n_live, a.device)
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES:
         return grouped_compact_masked_matmul_plain(
             a, b, fi, jj, n_live, a_mask, b_mask, block=block,
             epilogue_mult=epilogue_mult, emit_gran=emit_gran, out=out,
@@ -677,7 +679,7 @@ def masked_matmul_kernel(
     _check_2d(a, b, (bm, bk, bn))
     _validate(*_lift(a, b, out_mask, a_mask, b_mask), (bm, bk, bn),
               *_lift(epilogue_mult))
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES:
         return masked_matmul_plain(a, b, out_mask, a_mask, b_mask, bm=bm,
                                    bk=bk, bn=bn, epilogue_mult=epilogue_mult
                                    ).to(out_dtype)
@@ -727,7 +729,7 @@ def compact_masked_matmul_kernel(
     _validate(*_lift(a, b), None, *_lift(a_mask, b_mask), (bm, bk, bn),
               *_lift(epilogue_mult))
     _check_queue(ii, jj, n_active, a.device)
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES:
         return compact_masked_matmul_plain(
             a, b, ii, jj, n_active, a_mask, b_mask, bm=bm, bk=bk, bn=bn,
             epilogue_mult=epilogue_mult).to(out_dtype)

@@ -19,6 +19,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build, stats
 
 # Kernel launches since the last reset (plain-version calls are not counted).
@@ -56,10 +58,10 @@ def build_queue_plain(bitmap: torch.Tensor, capacity: int) -> Queue:
 
 def build_queue_kernel(bitmap: torch.Tensor, *, capacity: int) -> Queue:
     """Prefix-sum stream compaction of ``bitmap``.  Launches K2 for a CUDA
-    tensor; runs the plain version for a CPU tensor."""
+    tensor; runs the plain version for a CPU or meta tensor."""
     global launches
     _check(bitmap, capacity)
-    if bitmap.device.type == "cpu":
+    if bitmap.device.type in PLAIN_DEVICES:
         return build_queue_plain(bitmap, capacity)
     if bitmap.device.type != "cuda":
         raise ValueError(f"build_queue: unsupported device {bitmap.device}")

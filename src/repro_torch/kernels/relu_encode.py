@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build, stats
 from .shapes import block_bitmap
 
@@ -128,7 +130,7 @@ def relu_encode(z: torch.Tensor, gran: Tuple[int, int]
     granularity ``gran``; relu(z) keeps ``z``'s dtype.  Launches K1 for a
     CUDA tensor (a bf16 ``z`` is widened to f32 for it, which changes no
     sign and no NaN, and relu(z) narrowed back exactly); runs the plain
-    version for a CPU tensor."""
+    version for a CPU or meta tensor."""
     global launches
     if z.dim() != 2:
         raise ValueError(f"relu_encode wants a 2-D tensor, got {tuple(z.shape)}")
@@ -138,7 +140,7 @@ def relu_encode(z: torch.Tensor, gran: Tuple[int, int]
     gr, gc = gran
     if gr < 1 or gc < 1:
         raise ValueError(f"bad granularity {gran}")
-    if z.device.type == "cpu":
+    if z.device.type in PLAIN_DEVICES:
         return relu_encode_plain(z, gran)
     if z.device.type != "cuda":
         raise ValueError(f"relu_encode: unsupported device {z.device}")

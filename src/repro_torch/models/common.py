@@ -38,6 +38,17 @@ def upcast_dtype() -> torch.dtype:
     return _UPCAST
 
 
+class MetaGenerator(torch.Generator):
+    """What the initializers draw from on the ``meta`` device, where
+    PyTorch has no generator: a CPU generator that reports ``meta`` as its
+    device, so ``torch.randn(..., generator=gen, device=gen.device)``
+    allocates a meta leaf of the same shape and dtype and draws nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]

@@ -46,8 +46,8 @@ from .attention import (attn_apply, attn_decode, attn_init,
                         blockwise_attention, cross_attn_apply,
                         cross_attn_init)
 from .attention import init_cache as attn_init_cache
-from .common import (apply_rope, dense_init, dtype_of, embed_init, make_norm,
-                     upcast_dtype)
+from .common import (MetaGenerator, apply_rope, dense_init, dtype_of,
+                     embed_init, make_norm, upcast_dtype)
 from .ffn import ffn_apply, ffn_params
 from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_decode, ssm_init, ssm_init_cache
@@ -189,10 +189,12 @@ def lm_init(seed: int, cfg, *, dtype=None, device="cuda") -> Params:
     with ``params_from_jax``.  ``dtype`` defaults to ``cfg.dtype``
     (bfloat16 unless the config says otherwise); the leaves the reference
     keeps in f32 whatever the dtype (routers, SSM and xLSTM gate params)
-    stay f32."""
+    stay f32.  On ``device="meta"`` nothing is drawn: the same tree of
+    leaves with the same shapes and dtypes, holding no data."""
     dtype = dtype or dtype_of(cfg.dtype)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = MetaGenerator() if dev.type == "meta" \
+        else torch.Generator(device=dev).manual_seed(seed)
     p: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                      dtype)}
     if cfg.frontend:

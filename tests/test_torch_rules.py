@@ -87,10 +87,17 @@ def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
 
 
 def test_kernel_wrapper_takes_plain_version_only_for_cpu_tensors():
+    """The plain version runs for a CPU tensor and for a meta tensor, which
+    holds no data (shape-only work: the dry run); on any other device a
+    wrapper launches its kernel or raises."""
+    from repro_torch.device import PLAIN_DEVICES
     from repro_torch.kernels import launch_counts, ops
 
+    assert PLAIN_DEVICES == ("cpu", "meta")
     z = torch.randn(16, 16)
-    ops.relu_encode(z, block=(1, 8))
+    y, bits = ops.relu_encode(z, block=(1, 8))
+    ym, bm = ops.relu_encode(z.to("meta"), block=(1, 8))
+    assert ym.device.type == bm.device.type == "meta"
+    assert (ym.shape, ym.dtype, bm.shape, bm.dtype) == \
+        (y.shape, y.dtype, bits.shape, bits.dtype)
     assert launch_counts()["relu_encode"] == 0
-    with pytest.raises(ValueError):
-        ops.relu_encode(z.to("meta"), block=(1, 8))
