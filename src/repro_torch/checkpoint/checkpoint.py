@@ -23,8 +23,10 @@ only after the new rename lands); the parent dir is fsync'd; older steps
 and wreckage are pruned.  ``restore`` with no explicit step falls back to
 the previous intact checkpoint when the newest is corrupt or partial
 (counted as ``guard:ckpt_fallback``; the wreck goes to ``*.corrupt``).
-``restore_resharded`` restores onto the replicated placement of the
-data-parallel path: every rank loads the whole tree onto its own device.
+``restore_resharded`` restores onto any layout (a tree of
+``sharding.partition.NamedSharding``): every rank loads the whole tree
+and keeps its block of each leaf.  A DTensor tree is saved through
+``gather_full``: the full tensors, so the files stay mesh-agnostic.
 """
 from __future__ import annotations
 
@@ -300,20 +302,47 @@ def load_state(path: str, step: Optional[int] = None) -> Optional[dict]:
         return None
 
 
-def _replicated(spec) -> bool:
-    return all(entry is None for entry in spec)
+def gather_full(tree: Any, *, keep: bool = True) -> Any:
+    """``tree`` with every DTensor leaf gathered into its full tensor, on
+    the host: a collective per leaf that every rank of the mesh joins
+    (a plain leaf is returned as is).  What ``save`` writes is then the
+    mesh-agnostic full state, whoever writes it.  A rank that does not
+    write passes ``keep=False``: it joins each gather and drops the
+    result (its tree comes back None)."""
+    from repro_torch.sharding.partition import full, is_placed
+    out = []
+    for x in _tree.leaves(tree):
+        whole = full(x).cpu() if is_placed(x) else x
+        out.append(whole if keep else None)
+    return _tree.unflatten_like(tree, out) if keep else None
 
 
-def restore_resharded(path: str, template: Any, placements: Any,
+def restore_resharded(path: str, template: Any, shardings: Any,
                       step: Optional[int] = None) -> Tuple[int, Any]:
-    """Restore onto a new layout: ``placements`` is one
-    ``sharding.partition.PartitionSpec`` for every leaf, or a tree of them
-    matching ``template``.  The replicated placement (every entry None) is
-    what the data-parallel path runs: each rank restores the whole tree
-    onto its own device, the device of its template leaves.  Any other
-    placement is ROADMAP A18b and raises."""
-    from repro_torch.sharding.partition import A18B, spec_leaves
-    if not all(_replicated(s) for _, s in spec_leaves(placements)):
-        raise NotImplementedError(f"restore_resharded: {A18B}")
-    return restore(path, template, step)
-
+    """Restore onto a layout: ``shardings`` is one
+    ``sharding.partition.NamedSharding`` (or ``PartitionSpec``) for every
+    leaf, or a tree of them matching ``template``.  Every rank reads the
+    full tensors (the file is mesh-agnostic) and keeps its own block of
+    each (``NamedSharding.shard``: no collective), on the device of its
+    template leaf.  A ``PartitionSpec`` that shards nothing is the
+    replicated layout of the data-parallel path: the whole tree on every
+    rank."""
+    from repro_torch.sharding.partition import (NamedSharding,
+                                                leaves_of_shardings)
+    n = len(_tree.leaves(template))
+    each = leaves_of_shardings(shardings)
+    if len(each) == 1:
+        each = each * n
+    if len(each) != n:
+        raise ValueError(f"restore_resharded: {n} leaves, {len(each)} "
+                         f"shardings")
+    for s in each:
+        if not isinstance(s, NamedSharding) and \
+                any(e is not None for e in s):
+            raise ValueError(f"restore_resharded: {s!r} shards, and a "
+                             f"PartitionSpec has no mesh: pass a "
+                             f"NamedSharding")
+    step, state = restore(path, template, step)
+    return step, _tree.unflatten_like(state, [
+        s.shard(x) if isinstance(s, NamedSharding) else x
+        for s, x in zip(each, _tree.leaves(state))])

@@ -239,6 +239,7 @@ def sparse_gemm(
     by ``epilogue_mult`` when the spec stages ``sigma_prime``) exactly.
     With ``bitmap_emit`` it returns ``(out, bitmap)``, the (⌈M/er⌉, ⌈N/ec⌉)
     int32 any-nonzero bitmap of the returned values."""
+    _refuse_placed("sparse_gemm", a, b, epilogue_mult)
     spec = GemmSpec() if spec is None else spec
     spec = _tamper("gemm:spec", spec)
     masks = _as_masks(masks)
@@ -274,6 +275,16 @@ def sparse_gemm(
         bits = _tamper("gemm:emit_bits", bits)
         return (out[0], bits[0]) if not grouped_in else (out, bits)
     return out[0] if not grouped_in else out
+
+
+def _refuse_placed(op: str, *tensors) -> None:
+    """A kernel takes plain tensors: a DTensor would be gathered into it
+    silently.  Sharded callers run the kernels on their local blocks
+    (``models.ffn``'s ``local_map``)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"ops.{op}: a DTensor operand; run the kernel on "
+                        f"each rank's local block (local_map)")
 
 
 def _observe_live_tiles(spec: GemmSpec, a3, b3, masks: GemmMasks) -> None:
@@ -394,6 +405,7 @@ def bitmap_scan(x: torch.Tensor, *,
     the encoder for tensors with no ReLU to fuse into (raw inputs), counted
     as ``scan_pallas:<kind>``.  The kernel masks the ragged edge itself, so
     nothing is padded here."""
+    _refuse_placed("bitmap_scan", x)
     stats.record(f"scan_pallas:{kind}")
     with stats.lifecycle_scope("scan", kind):
         return _bitmap_scan.bitmap_scan(x, block)
@@ -405,6 +417,7 @@ def relu_encode(z: torch.Tensor, *,
     """Fused relu(z) + block bitmap at granularity ``block`` — THE forward-
     pass bitmap computation, one fused pass per activation per step.  The
     kernel masks the ragged edge itself, so nothing is padded here."""
+    _refuse_placed("relu_encode", z)
     stats.record("encode:act")
     with stats.lifecycle_scope("encode", "act"):
         return _relu_encode.relu_encode(z, block)

@@ -29,8 +29,9 @@ the 16×16 single-pod mesh and the 2×16×16 multi-pod mesh
     ``active_params_b``, ``fsdp`` and ``microbatches``, as the reference
     records them.
 
-The layout is specs only: nothing is placed (``params_shardings`` and
-``to_shardings`` are ROADMAP A18b) and no activation rule is installed.
+The layout is specs only: the meta tensors are sized by the local shapes
+``partition.to_shardings`` gives them (what ``train_loop(mesh=...)``
+places on each rank) and no activation rule is installed.
 Results go to ``build/dryrun/`` in the checkout; the process exits 1 on
 any failed cell.
 """
@@ -67,9 +68,8 @@ from repro_torch.sharding import partition
 HBM_PER_CHIP = ha.HBM_BYTES
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "build", "dryrun")
-LAYOUT = ("partition specs on the abstract mesh; nothing placed "
-          "(params_shardings/to_shardings: ROADMAP A18b), no activation "
-          "rules installed")
+LAYOUT = ("partition specs on the abstract mesh, each leaf at the local "
+          "shape its NamedSharding places; no activation rules installed")
 NO_TEMPS = "no compiler: temporaries and outputs are not counted"
 
 
@@ -92,23 +92,18 @@ def pick_microbatches(cfg, shape: ShapeConfig, mesh) -> int:
 # Per-device argument bytes from the partition specs
 # ---------------------------------------------------------------------------
 
-def _shards(spec, mesh) -> int:
-    n = 1
-    for entry in spec:
-        if entry is not None:
-            n *= partition.axis_size(mesh, entry)
-    return n
-
-
 def spec_bytes(tree: Any, specs: Any, mesh) -> int:
-    """Per-device bytes of ``tree`` laid out by ``specs`` on ``mesh``
-    (every sharded dim divides: the rules are divisibility-guarded)."""
+    """Per-device bytes of ``tree`` laid out by ``specs`` on ``mesh``: each
+    leaf at the local shape of its ``partition.NamedSharding`` (every
+    sharded dim divides: the rules are divisibility-guarded), the bytes a
+    rank of ``train_loop(mesh=...)`` holds."""
     leaves = _tree.leaves(tree)
-    spec_list = [s for _, s in partition.spec_leaves(specs)]
-    if len(leaves) != len(spec_list):
-        raise ValueError(f"{len(leaves)} leaves, {len(spec_list)} specs")
-    return sum(t.numel() * t.element_size() // _shards(s, mesh)
-               for t, s in zip(leaves, spec_list))
+    shardings = partition.leaves_of_shardings(
+        partition.to_shardings(specs, mesh))
+    if len(leaves) != len(shardings):
+        raise ValueError(f"{len(leaves)} leaves, {len(shardings)} specs")
+    return sum(math.prod(s.local_shape(t.shape)) * t.element_size()
+               for t, s in zip(leaves, shardings))
 
 
 def _replicated(tree: Any) -> Any:

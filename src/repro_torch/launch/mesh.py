@@ -11,7 +11,14 @@ that group by axes:
   * ``group(axes)``: the process group of the ranks that differ from this
     one only along ``axes`` — the ranks a psum over ``axes`` reduces.  It
     is built with ``new_group`` on first use, by every rank in the same
-    order, and cached.
+    order, and cached;
+  * ``device_mesh()``: a ``torch.distributed`` ``DeviceMesh`` over the same
+    ranks, row-major, with the same axis names, on the ranks' device type
+    — what ``DTensor`` placements (``sharding.partition.NamedSharding``)
+    refer to.  A rank that joins gloo (on the CPU, or ranks sharing one
+    card) has DTensor's functional collectives pointed at synchronous
+    ones first (``sharding.shared_card``).  Built on first use by every
+    rank in the same order, and cached.
 
 A mesh with no process group (``init_mesh(..., backend=None)``, a world of
 one rank) makes every collective the identity: the reference's one-device
@@ -38,18 +45,24 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-# Process groups by their ranks, shared by every mesh of the process, so
-# a case that builds a fresh mesh over the same world reuses them.
+from repro_torch.sharding import shared_card
+
+# Process groups by their ranks, and DeviceMeshes by (shape, axes, device
+# type), shared by every mesh of the process, so a case that builds a
+# fresh mesh over the same world reuses them.
 _GROUPS: Dict[Tuple[int, ...], object] = {}
+_DEVICE_MESHES: Dict[tuple, object] = {}
 
 
 class Mesh:
     """Named axes over the ranks of one process group (see the module
     docstring).  ``rank`` is None for an abstract mesh; ``distributed`` is
-    False for a world of one rank with no process group."""
+    False for a world of one rank with no process group; ``device_type``
+    is the ranks' device type ("cpu" or "cuda")."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str], *,
-                 rank: Optional[int] = None, distributed: bool = False):
+                 rank: Optional[int] = None, distributed: bool = False,
+                 device_type: str = "cpu"):
         if len(shape) != len(axes):
             raise ValueError(f"shape {tuple(shape)} vs axes {tuple(axes)}")
         self.axis_names: Tuple[str, ...] = tuple(axes)
@@ -58,6 +71,7 @@ class Mesh:
         self.size = math.prod(self.shape.values())
         self.rank = rank
         self.distributed = distributed
+        self.device_type = device_type
         self.coords: Dict[str, int] = {}
         if rank is not None:
             rest, coords = rank, []
@@ -89,6 +103,22 @@ class Mesh:
         """Wait for every rank of the mesh (nothing without a group)."""
         if self.distributed:
             dist.barrier()
+
+    def device_mesh(self):
+        """The ``DeviceMesh`` over this mesh's ranks, or None on a mesh
+        without a process group (a world of one rank places nothing)."""
+        if self.rank is None:
+            raise ValueError("an abstract mesh has no DeviceMesh")
+        if not self.distributed:
+            return None
+        key = (tuple(self.shape.values()), self.axis_names, self.device_type)
+        if key not in _DEVICE_MESHES:
+            from torch.distributed.device_mesh import DeviceMesh
+            _DEVICE_MESHES[key] = DeviceMesh(
+                self.device_type,
+                torch.arange(self.size).reshape(tuple(self.shape.values())),
+                mesh_dim_names=self.axis_names)
+        return _DEVICE_MESHES[key]
 
     def group(self, axes):
         """The process group reducing over ``axes``, or None when the mesh
@@ -158,7 +188,10 @@ def init_mesh(shape: Sequence[int], axes: Sequence[str], *,
     if backend is None:
         if n != 1:
             raise ValueError(f"a mesh of {n} ranks needs a backend")
-        return Mesh(shape, axes, rank=0)
+        return Mesh(shape, axes, rank=0,
+                    device_type=torch.device(device).type)
+    if shared_card.needed(backend):
+        shared_card.install()
     if not dist.is_initialized():
         if init_method is None or rank is None:
             raise ValueError("joining a process group needs init_method "
@@ -174,12 +207,14 @@ def init_mesh(shape: Sequence[int], axes: Sequence[str], *,
     if dist.get_world_size() != n:
         raise ValueError(f"mesh of {n} ranks over a world of "
                          f"{dist.get_world_size()}")
-    return Mesh(shape, axes, rank=dist.get_rank(), distributed=True)
+    return Mesh(shape, axes, rank=dist.get_rank(), distributed=True,
+                device_type=torch.device(device).type)
 
 
 def close_mesh() -> None:
     """Leave the process group this process joined (if any)."""
     _GROUPS.clear()
+    _DEVICE_MESHES.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -202,6 +237,8 @@ class RankError(RuntimeError):
 
 def _rank_main(rank, world, backend, device, init_method, tasks, results):
     try:
+        if shared_card.needed(backend):
+            shared_card.install()
         if torch.device(device).type == "cuda":
             torch.cuda.set_device(torch.device(device))
         else:

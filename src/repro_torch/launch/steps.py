@@ -14,6 +14,8 @@ from repro_torch.models.transformer import (decode_head, encode,
                                             lm_head_weight, lm_hidden,
                                             lm_loss)
 from repro_torch.optim.optimizer import OptConfig, adamw_update
+from repro_torch.sharding import partition
+from repro_torch.sharding.context import with_sharding_constraint
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], k: int):
@@ -28,15 +30,32 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], k: int):
     return {name: r(x) for name, x in batch.items()}
 
 
-def make_train_step(cfg, opt_cfg: OptConfig, *, microbatches: int = 1):
+def make_train_step(cfg, opt_cfg: OptConfig, *, microbatches: int = 1,
+                    grad_pspecs=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     Gradients are accumulated over ``microbatches`` in f32 and averaged, as
     the reference's ``lax.scan`` does; with ``opt_cfg.loss_scale`` the loss
     is scaled before the backward pass and the optimizer unscales.  The
     forward pass and the optimizer run in profiler ranges ``layer:forward``
-    and ``layer:adamw`` (``profile_step --arch``)."""
+    and ``layer:adamw`` (``profile_step --arch``).
+
+    On params placed as DTensors (``sharding.partition.place``) the step
+    runs on them unchanged.  ``grad_pspecs``, a tree of
+    ``PartitionSpec``/``NamedSharding`` matching the params, pins each
+    microbatch's gradient and the f32 accumulator to the param layout:
+    the redistribution from the backward pass's partial sums is the
+    gradient's all-reduce over the data axes (a reduce-scatter where FSDP
+    splits the param).  The metrics come back as whole tensors."""
     leaves_of = _tree.leaves
+
+    def _pin(g):
+        if grad_pspecs is None:
+            return g
+        rules = partition.leaves_of_shardings(grad_pspecs)
+        return _tree.unflatten_like(g, [
+            with_sharding_constraint(x, r) for x, r in
+            zip(leaves_of(g), rules)])
 
     def value_and_grad(params, mb):
         leaves = [p.detach().requires_grad_(True) for p in leaves_of(params)]
@@ -45,27 +64,30 @@ def make_train_step(cfg, opt_cfg: OptConfig, *, microbatches: int = 1):
         scaled = loss * opt_cfg.loss_scale if opt_cfg.loss_scale > 0 \
             else loss
         grads = torch.autograd.grad(scaled, leaves)
-        return loss.detach(), _tree.unflatten_like(params, list(grads))
+        return loss.detach(), _pin(_tree.unflatten_like(params,
+                                                        list(grads)))
 
     def train_step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, grads = value_and_grad(params, batch)
-        else:
-            mbs = _split_microbatches(batch, microbatches)
-            gsum, lsum = None, None
-            for j in range(microbatches):
-                loss_j, g = value_and_grad(
-                    params, {k: v[j] for k, v in mbs.items()})
-                g32 = _tree.tree_map(lambda x: x.to(torch.float32), g)
-                gsum = g32 if gsum is None else _tree.tree_map(
-                    torch.add, gsum, g32)
-                lsum = loss_j if lsum is None else lsum + loss_j
-            grads = _tree.tree_map(lambda x: x / microbatches, gsum)
-            loss = lsum / microbatches
-        with stats.layer_scope("adamw"):
-            params, opt_state, metrics = adamw_update(grads, opt_state,
-                                                      params, opt_cfg)
-        metrics["loss"] = loss
+        with partition.placed_scope(params):
+            if microbatches == 1:
+                loss, grads = value_and_grad(params, batch)
+            else:
+                mbs = _split_microbatches(batch, microbatches)
+                gsum, lsum = None, None
+                for j in range(microbatches):
+                    loss_j, g = value_and_grad(
+                        params, {k: v[j] for k, v in mbs.items()})
+                    g32 = _tree.tree_map(lambda x: x.to(torch.float32), g)
+                    gsum = g32 if gsum is None else _pin(_tree.tree_map(
+                        torch.add, gsum, g32))
+                    lsum = loss_j if lsum is None else lsum + loss_j
+                grads = _tree.tree_map(lambda x: x / microbatches, gsum)
+                loss = lsum / microbatches
+            with stats.layer_scope("adamw"):
+                params, opt_state, metrics = adamw_update(grads, opt_state,
+                                                          params, opt_cfg)
+            metrics["loss"] = loss
+            metrics = {k: partition.full(v) for k, v in metrics.items()}
         return params, opt_state, metrics
 
     return train_step

@@ -25,8 +25,17 @@ all-reduce bitmap-compressed.  Every rank restores (the replicated
 ``state.json``; barriers after each save and around each restore keep
 every rank's reads of the directory apart from rank 0's writes.  The
 guard reads all-reduced metrics, so its verdicts are the same on every
-rank.  A mesh without ``spmd`` and ``fsdp`` are the jit partitioner's
-half, ROADMAP A18b, and raise.
+rank.
+
+A mesh without ``spmd`` runs the eager step on DTensors, the port of the
+reference's jit-partitioned step: params and optimizer state placed by
+``partition.params_shardings``/``opt_state_pspecs`` (tensor parallelism
+on ``model``; with ``fsdp`` also the largest dim of every param of at
+least 4 M elements over the data axes), each rank's rows of the batch by
+``batch_pspecs``, the activation rules installed for the loop, and the
+gradients pinned to the param layout.  Checkpoints hold the full tensors
+(every rank joins the gather, rank 0 writes) and restore onto the loop's
+layout, whatever layout wrote them.
 
 Decoder-only configs without a frontend train here (dense, MoE, MLA, an
 unrolled dense prefix); enc-dec and frontend configs raise, since the
@@ -39,6 +48,7 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, Optional
@@ -58,6 +68,7 @@ from repro_torch.runtime import faults as _faults
 from repro_torch.runtime.guards import StepGuard
 from repro_torch.sharding import partition
 from repro_torch.sharding import spmd_step as _spmd
+from repro_torch.sharding.context import sharding_rules
 
 
 @dataclasses.dataclass
@@ -117,7 +128,9 @@ def train_loop(
     the schedule ladder), and unhealthy steps never produce checkpoints.
     ``spmd=True`` (with ``mesh``) runs the data-parallel step in this rank
     of the mesh, with dense fallback above ``collective_cutoff`` union live
-    fraction.  Runs on CUDA unless ``device="cpu"``."""
+    fraction; a mesh without ``spmd`` places params, optimizer state and
+    batch by the partition rules (``fsdp`` as given).  Runs on CUDA unless
+    ``device="cpu"``."""
     if spmd:
         if mesh is None:
             raise ValueError("spmd=True requires a mesh")
@@ -126,9 +139,9 @@ def train_loop(
                 "spmd mode: the mesh IS the data-parallel split; "
                 "gradient-accumulation microbatching is the single-process "
                 "step's feature (use microbatches=1)")
-    if fsdp or (mesh is not None and not spmd):
-        raise NotImplementedError(
-            f"train_loop(mesh=..., spmd=False) / fsdp: {partition.A18B}")
+    if fsdp and (mesh is None or spmd):
+        raise ValueError("fsdp places params on a mesh: it needs a mesh, "
+                         "and the spmd step replicates them")
     if cfg.enc_dec or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: the loop feeds lm_batch tokens only, no frontend "
@@ -140,23 +153,34 @@ def train_loop(
         total_steps=tcfg.total_steps, weight_decay=tcfg.weight_decay,
         beta1=tcfg.beta1, beta2=tcfg.beta2, grad_clip=tcfg.grad_clip,
         loss_scale=tcfg.loss_scale, emit_guard_stats=guard is not None)
+    params = lm_init(tcfg.seed, cfg, dtype=param_dtype, device=dev)
+    opt_state = adamw_init(params)
+    layout = partition.P()              # the spmd step's: all replicated
+    rules = None
     if spmd:
         step_fn = _spmd.make_spmd_train_step(cfg, opt_cfg, mesh,
                                              cutoff=collective_cutoff)
+    elif mesh is not None:
+        layout = {"params": partition.params_shardings(params, mesh,
+                                                       fsdp=fsdp),
+                  "opt": partition.to_shardings(partition.opt_state_pspecs(
+                      opt_state, params, mesh, fsdp=fsdp), mesh)}
+        params = partition.place(params, layout["params"])
+        opt_state = partition.place(opt_state, layout["opt"])
+        rules = {**partition.activation_rules(mesh), "__mesh__": mesh}
+        step_fn = make_train_step(cfg, opt_cfg,
+                                  microbatches=tcfg.microbatches,
+                                  grad_pspecs=layout["params"])
     else:
         step_fn = make_train_step(cfg, opt_cfg,
                                   microbatches=tcfg.microbatches)
-
-    params = lm_init(tcfg.seed, cfg, dtype=param_dtype, device=dev)
-    opt_state = adamw_init(params)
     start_step = 0
     resumed_from = None
 
     def _restore_latest(params, opt_state):
         tpl = {"params": params, "opt": opt_state}
         if mesh is not None:
-            step, state = ckpt.restore_resharded(ckpt_dir, tpl,
-                                                 partition.P())
+            step, state = ckpt.restore_resharded(ckpt_dir, tpl, layout)
         else:
             step, state = ckpt.restore(ckpt_dir, tpl)
         return step, state["params"], state["opt"]
@@ -169,9 +193,13 @@ def train_loop(
             mesh.barrier()
 
     def _save(step, extra):
-        if mesh is None or mesh.rank == 0:
-            ckpt.save(ckpt_dir, step, {"params": params, "opt": opt_state},
-                      keep=tcfg.keep_checkpoints, extra=extra)
+        writes = mesh is None or mesh.rank == 0
+        state = ckpt.gather_full({"params": params, "opt": opt_state},
+                                 keep=writes)
+        if writes:
+            ckpt.save(ckpt_dir, step, state, keep=tcfg.keep_checkpoints,
+                      extra=extra)
+        del state
         _barrier()
 
     def _host_state(step):
@@ -198,10 +226,15 @@ def train_loop(
     for step in range(start_step, steps):
         batch = lm_batch(tcfg.seed, step, batch=batch_size, seq_len=seq_len,
                          vocab=cfg.vocab_size, device=dev)
+        if rules is not None:
+            batch = partition.place(batch, partition.to_shardings(
+                partition.batch_pspecs(batch, mesh), mesh))
         params = _faults.tap("train:params", params, step=step)
         opt_state = _faults.tap("train:opt_state", opt_state, step=step)
         t0 = time.time()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        with (contextlib.nullcontext() if rules is None
+              else sharding_rules(rules)):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         dt = time.time() - t0
         _autotune.fold_pending()
         slow = detector.observe(step, dt)

@@ -20,10 +20,14 @@ reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding.context import data_dims, reshape, rows_local
+from repro_torch.sharding.partition import is_placed
 
 from .common import apply_rope, dense_init, upcast_dtype
 
@@ -143,7 +147,76 @@ def blockwise_attention(
     backward pass (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint``): otherwise every (q, kv) tile's scores stay alive,
     ~5 GB a layer for gemma3-12b at 4,096 positions.  Returns (B, T, Hq,
-    Dv) in v's dtype."""
+    Dv) in v's dtype.
+
+    On DTensors it runs under ``local_map`` on each rank's rows (the
+    batch over the data axes), as DTensor has no strategy for the score
+    products (torch 2.11).  Where q, k and v arrive with their heads split
+    on a model axis that divides both head counts, each rank keeps its own
+    heads (GQA's groups stay whole: query head ``i`` reads kv head ``i //
+    g`` on the same rank); otherwise every head runs on every rank of
+    that axis (SmolLM's 15/5 heads on 2 ranks: ROADMAP Queue C)."""
+    kw = dict(causal=causal, window=window, q_chunk=q_chunk,
+              kv_chunk=kv_chunk, schedule=schedule, q_offset=q_offset)
+    if is_placed(q):
+        return _blockwise_local(q, k, v, kw)
+    return _blockwise(q, k, v, **kw)
+
+
+def _head_split(q, k, v) -> Optional[list]:
+    """The placements that keep q, k and v's heads (dim 2) split where
+    they are split alike on a non-data axis dividing both head counts
+    (rows over the data axes), or None where no axis splits them so."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    out, split = [], False
+    for i, data in enumerate(data_dims(mesh)):
+        pls = [getattr(a, "placements", (Replicate(),) * mesh.ndim)[i]
+               for a in (q, k, v)]
+        n = mesh.size(i)
+        if data:
+            out.append(Shard(0))
+        elif all(p == Shard(2) for p in pls) and \
+                q.shape[2] % n == 0 and k.shape[2] % n == 0:
+            out.append(Shard(2))
+            split = True
+        else:
+            out.append(Replicate())
+    return out if split else None
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous: a DTensor built on
+    a strided local gradient claims a contiguous layout, and the views of
+    the projections' backward then fail on it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _blockwise_split_heads(q, k, v, **kw):
+    return _blockwise(*(_DenseGrad.apply(a) for a in (q, k, v)), **kw)
+
+
+def _blockwise_local(q, k, v, kw):
+    heads = _head_split(q, k, v)
+    if heads is None:
+        return rows_local(functools.partial(_blockwise, **kw), (q, k, v))
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(functools.partial(_blockwise_split_heads, **kw),
+                     out_placements=heads, in_placements=(heads,) * 3,
+                     in_grad_placements=(heads,) * 3,
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def _blockwise(q, k, v, *, causal, window, q_chunk, kv_chunk, schedule,
+               q_offset):
     b, t, hq, d = q.shape
     _, s, hk, dv = v.shape
     g = hq // hk
@@ -193,15 +266,15 @@ def attn_apply(params: Params, x: torch.Tensor, cfg: AttnConfig,
         positions = torch.arange(t, device=x.device)
     if cfg.use_mla:
         return _mla_apply(params, x, cfg, positions)
-    q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = (x @ params["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ params["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    q = reshape(x @ params["wq"], b, t, cfg.n_heads, cfg.head_dim)
+    k = reshape(x @ params["wk"], b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = reshape(x @ params["wv"], b, t, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = blockwise_attention(q, k, v, causal=True, window=cfg.window,
                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                             schedule=cfg.schedule)
-    return o.reshape(b, t, -1) @ params["wo"]
+    return reshape(o, b, t, -1) @ params["wo"]
 
 
 def _mla_apply(params: Params, x: torch.Tensor, cfg: AttnConfig,
@@ -212,21 +285,21 @@ def _mla_apply(params: Params, x: torch.Tensor, cfg: AttnConfig,
     b, t, _ = x.shape
     h = cfg.n_heads
     qd = cfg.qk_nope_dim + cfg.qk_rope_dim
-    q = (x @ params["wq"]).reshape(b, t, h, qd)
+    q = reshape(x @ params["wq"], b, t, h, qd)
     q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = x @ params["wdkv"]                              # (B,T,r)
     k_rope = apply_rope((x @ params["wkr"])[:, :, None, :],
                         positions, cfg.rope_theta)         # (B,T,1,dr)
-    k_nope = (c_kv @ params["wuk"]).reshape(b, t, h, cfg.qk_nope_dim)
-    vv = (c_kv @ params["wuv"]).reshape(b, t, h, cfg.v_head_dim)
+    k_nope = reshape(c_kv @ params["wuk"], b, t, h, cfg.qk_nope_dim)
+    vv = reshape(c_kv @ params["wuv"], b, t, h, cfg.v_head_dim)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     kf = torch.cat([k_nope, k_rope.expand(b, t, h, cfg.qk_rope_dim)],
                    dim=-1)
     o = blockwise_attention(qf, kf, vv, causal=True,
                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                             schedule=cfg.schedule)
-    return o.reshape(b, t, -1) @ params["wo"]
+    return reshape(o, b, t, -1) @ params["wo"]
 
 
 def cross_attn_init(gen: torch.Generator, cfg: AttnConfig, d_memory: int,
@@ -247,12 +320,12 @@ def cross_attn_apply(params: Params, x: torch.Tensor, memory: torch.Tensor,
     RoPE, no causal mask; S need not equal T."""
     b, t, _ = x.shape
     s = memory.shape[1]
-    q = (x @ params["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = (memory @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (memory @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = reshape(x @ params["wq"], b, t, cfg.n_heads, cfg.head_dim)
+    k = reshape(memory @ params["wk"], b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = reshape(memory @ params["wv"], b, s, cfg.n_kv_heads, cfg.head_dim)
     o = blockwise_attention(q, k, v, causal=False,
                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return o.reshape(b, t, -1) @ params["wo"]
+    return reshape(o, b, t, -1) @ params["wo"]
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,

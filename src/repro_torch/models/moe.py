@@ -24,9 +24,13 @@ f32 step chose (``chip_smoke.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.sharding.context import constraint, data_dims
+from repro_torch.sharding.partition import is_placed
 
 from .common import activation_fn, dense_init
 from .ffn import FFNConfig, ffn_apply, ffn_params
@@ -109,6 +113,77 @@ def _expert_ffn(p: Params, xs: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     return torch.bmm(h, p["w_down"])
 
 
+def _expert_names(cfg: MoEConfig) -> Tuple[str, ...]:
+    return ("w_gate", "w_up", "w_down") if cfg.activation.endswith("_glu") \
+        else ("w_up", "w_down")
+
+
+def _dispatch_combine(xt, slot, w, *weights, capacity: int, cfg: MoEConfig,
+                      e_lo: int = 0) -> torch.Tensor:
+    """The experts ``e_lo …`` that ``weights`` hold (stacked on dim 0) on
+    their slots: xt (T, d) tokens, slot (T, k) buffer slots over all E
+    experts (``E·capacity`` for a dropped choice), w (T, k, 1) combine
+    weights → (T, d), each token's sum over its choices that these
+    experts serve.
+
+    Dispatch: buffer row s takes (token, choice) src[s]; rows nobody
+    fills take the appended zero row.  Live slots are distinct, so only
+    the discarded sentinel entry of ``src`` is written more than once."""
+    p = dict(zip(_expert_names(cfg), weights))
+    t, k = slot.shape
+    d = xt.shape[-1]
+    n = t * k
+    lo = e_lo * capacity
+    size = p["w_up"].shape[0] * capacity
+    lslot = torch.where((slot >= lo) & (slot < lo + size), slot - lo,
+                        torch.full_like(slot, size))
+    src = torch.full((size + 1,), n, dtype=torch.long, device=xt.device)
+    src[lslot.reshape(-1)] = torch.arange(n, device=xt.device)
+    rows = torch.cat([xt.unsqueeze(1).expand(t, k, d).reshape(n, d),
+                      xt.new_zeros((1, d))])
+    xs = constraint(rows[src[:-1]].reshape(-1, capacity, d), "moe_ecd")
+    ys = constraint(_expert_ffn(p, xs, cfg), "moe_ecd").reshape(size, d)
+    ys = torch.cat([ys, ys.new_zeros((1, d))])
+    # Combine: each token's k outputs weighted by the normalized gates.
+    return (ys[lslot] * w.to(ys.dtype)).sum(dim=1)
+
+
+def _experts(xt, slot, w, weights, capacity: int, cfg: MoEConfig):
+    """``_dispatch_combine`` over every expert.  On DTensors it runs under
+    ``local_map``: the tokens, slots and gates replicated (the slots are
+    positions over the global batch), each expert weight gathered over
+    the data axes and left as the rules place it over ``model``.  Where
+    that splits the experts (EP) or their hidden width (TP), each model
+    rank sums its part of every token's output (``Partial``), and its
+    part of the tokens' and gates' gradients."""
+    if not is_placed(weights[0]):
+        return _dispatch_combine(xt, slot, w, *weights, capacity=capacity,
+                                 cfg=cfg)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = weights[0].device_mesh
+    names = mesh.mesh_dim_names
+    data = data_dims(mesh)
+    w_pl = [[Replicate() if dp else pl for dp, pl in zip(data, wt.placements)]
+            for wt in weights]
+    split = [not dp and pl.is_shard()
+             for dp, pl in zip(data, weights[0].placements)]
+    rep = [Replicate()] * len(names)
+    part = [Partial() if s else Replicate() for s in split]
+    e_lo = 0
+    for i, (dp, pl) in enumerate(zip(data, weights[0].placements)):
+        if not dp and pl.is_shard(0):
+            e_lo = mesh.get_local_rank(names[i]) * (cfg.n_experts //
+                                                    mesh.size(i))
+    fn = functools.partial(_dispatch_combine, capacity=capacity, cfg=cfg,
+                           e_lo=e_lo)
+    return local_map(fn, out_placements=part,
+                     in_placements=(rep, rep, rep, *w_pl),
+                     in_grad_placements=(part, part, part, *w_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        xt, slot, w, *weights)
+
+
 def capacity_of(tokens: int, cfg: MoEConfig) -> int:
     """Slots per expert: ``int(T·k / E · capacity_factor)``, at least 1."""
     return max(1, int(tokens * cfg.top_k / cfg.n_experts
@@ -157,21 +232,10 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: MoEConfig, *,
     slot = gate_idx * capacity + torch.clamp(pos, max=capacity - 1)
     slot = torch.where(keep, slot, torch.full_like(slot, e * capacity))
 
-    # Dispatch: buffer row s takes (token, choice) src[s]; rows nobody
-    # fills take the appended zero row.  Live slots are distinct, so only
-    # the discarded sentinel entry of ``src`` is written more than once.
-    n = t * k
-    src = torch.full((e * capacity + 1,), n, dtype=torch.long, device=dev)
-    src[slot.reshape(-1)] = torch.arange(n, device=dev)
-    rows = torch.cat([xt.unsqueeze(1).expand(t, k, d).reshape(n, d),
-                      xt.new_zeros((1, d))])
-    xs = rows[src[:-1]].reshape(e, capacity, d)
-    ys = _expert_ffn(params, xs, cfg).reshape(e * capacity, d)
-    ys = torch.cat([ys, ys.new_zeros((1, d))])
-
-    # Combine: each token's k outputs weighted by the normalized gates.
     w = (gate_vals * keep.to(gate_vals.dtype))[..., None]
-    y = (ys[slot] * w.to(ys.dtype)).sum(dim=1).to(x.dtype)
+    names = _expert_names(cfg)
+    y = _experts(xt, slot, w, [params[n] for n in names], capacity, cfg
+                 ).to(x.dtype)
 
     if "shared" in params:
         y = y + ffn_apply(params["shared"], xt, cfg.shared_config(d))

@@ -23,11 +23,14 @@ serving engine's default, as the reference's) runs the conv and the
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding.context import rows_local
 
 from .common import dense_init, upcast_dtype
 
@@ -166,7 +169,8 @@ def ssm_apply(params: Params, x: torch.Tensor, cfg: SSMConfig
                                    dim=-1)
     dt = _dt(params, dt_r)                                  # (B,T,di)
     a = -torch.exp(params["a_log"].to(up))                  # (di, ds)
-    y = _selective_scan_chunked(dt, b_in, c_in, u, a, cfg)
+    y = rows_local(functools.partial(_selective_scan_chunked, cfg=cfg),
+                   (dt, b_in, c_in, u), (a,))
     y = y + params["d_skip"].to(up) * u.to(up)
     y = (y * F.silu(z.to(up))).to(x.dtype)
     return y @ params["w_out"]

@@ -22,9 +22,10 @@ f32 (``common.upcast_dtype``).
 the sizes the port trains recomputing the forward would only cost time,
 and a recomputed sparse FFN would count ``encode:act`` twice (ROADMAP
 Queue C).  The Mamba chunk body is the exception (``models/ssm.py``).
-The reference's sharding ``constraint`` calls are left out: with no rules
-installed ``repro_torch.sharding.context.constraint`` is the identity, the
-only state the data-parallel path runs in.
+The activations are annotated where the reference annotates them
+(``constraint``: ``act_btd``, ``act_stash``, ``head_dv``), so on DTensor
+params (``train_loop(mesh=...)``) the installed rules lay them out as
+GSPMD does.
 
 Decode (``init_caches``, ``decode_step``): the caches are real per-period
 tensors (the reference broadcasts one cache over the periods), updated in
@@ -41,6 +42,9 @@ import torch
 from repro_torch import tree as _tree
 from repro_torch.device import resolve_device
 from repro_torch.kernels import stats
+from repro_torch.sharding.context import (by_axis, constraint,
+                                         current_rules, data_dims, settle)
+from repro_torch.sharding.partition import is_placed
 
 from .attention import (attn_apply, attn_decode, attn_init,
                         blockwise_attention, cross_attn_apply,
@@ -148,6 +152,7 @@ def _block_tail(p: Params, x: torch.Tensor, cfg, use_moe: bool,
     block has one), then the FFN or MoE; returns (x, moe_aux)."""
     _, norm = make_norm(cfg.norm)
     aux = torch.zeros((), dtype=upcast_dtype(), device=x.device)
+    x = constraint(x, "act_btd")
     if memory is not None and "cross" in p:
         h = norm(p["norm_x"], x)
         x = x + cross_attn_apply(p["cross"], h, memory, cfg.attn_config())
@@ -156,16 +161,69 @@ def _block_tail(p: Params, x: torch.Tensor, cfg, use_moe: bool,
         h, aux = moe_apply(p["moe"], h, cfg.moe)
     else:
         h = ffn_apply(p["ffn"], h, cfg.ffn_config())
-    return x + h, aux
+    return constraint(x + h, "act_btd"), aux
 
 
 def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows of ``tokens``; an id outside the vocabulary gives a
-    zero row (the reference's vocab-sharded lookup)."""
+    zero row (the reference's vocab-sharded lookup).
+
+    When the installed rules carry the mesh (``"__mesh__"``) and
+    ``"embed_vocab_axis"``, and the table is a DTensor split on that axis
+    along its vocabulary, each rank gathers from its own slice of the
+    vocabulary, masks the ids it does not own, and the rows are summed
+    over the vocab axis (``collectives._reduce``, counted in
+    ``wire_bytes()``): the reference's ``shard_map`` lookup."""
+    rules = current_rules() or {}
+    mesh, vaxis = rules.get("__mesh__"), rules.get("embed_vocab_axis")
+    if mesh is not None and vaxis is not None and is_placed(embed):
+        names = embed.device_mesh.mesh_dim_names
+        pl = embed.placements[names.index(vaxis)]
+        if pl.is_shard(0):
+            return _embed_lookup_vocab_sharded(embed, tokens, mesh, vaxis)
     v = embed.shape[0]
     ok = (tokens >= 0) & (tokens < v)
-    rows = embed[tokens.clamp(0, v - 1)]
+    ids = tokens.clamp(0, v - 1)
+    if is_placed(embed):
+        # F.embedding, whose backward DTensor shards (indexing's
+        # index_put has no strategy for it in torch 2.11), on the table
+        # gathered over every axis but its vocabulary's split (FSDP's
+        # split of d meets the batch's split of the ids on the data axis)
+        from torch.distributed.tensor import Replicate
+        embed = embed.redistribute(placements=[
+            p if p.is_shard(0) else Replicate() for p in embed.placements])
+        rows = torch.nn.functional.embedding(ids, embed)
+    else:
+        rows = embed[ids]
     return rows * ok[..., None].to(rows.dtype)
+
+
+def _embed_lookup_vocab_sharded(embed, tokens, mesh, vaxis: str):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import collectives
+    names = embed.device_mesh.mesh_dim_names
+    vs = embed.shape[0] // mesh.shape[vaxis]
+    lo = mesh.coords[vaxis] * vs
+    rows = by_axis(embed.device_mesh, Shard(0), Replicate())
+
+    def f(emb, toks):
+        idx = toks - lo
+        ok = (idx >= 0) & (idx < vs)
+        out = emb[idx.clamp(0, vs - 1)] * ok[..., None].to(emb.dtype)
+        with torch.no_grad():
+            summed = collectives._reduce(out.detach(), mesh, (vaxis,))
+        return out + (summed - out).detach()     # the sum; its gradient
+                                                 # is each rank's own rows
+
+    table = [Shard(0) if n == vaxis else Replicate() for n in names]
+    table_grad = [Partial() if d else pl
+                  for d, pl in zip(data_dims(embed.device_mesh), table)]
+    return local_map(f, out_placements=rows, in_placements=(table, rows),
+                     in_grad_placements=(table_grad, rows),
+                     device_mesh=embed.device_mesh,
+                     redistribute_inputs=True)(embed, tokens)
 
 
 def _period_layout(cfg) -> Tuple[Tuple[str, bool], ...]:
@@ -292,6 +350,7 @@ def lm_hidden(params: Params, tokens: torch.Tensor, cfg,
         if "frontend_proj" in params:
             fe = fe @ params["frontend_proj"]
         x = prepend_frontend(fe, x)
+    x = constraint(x, "act_btd")
     aux = torch.zeros((), dtype=upcast_dtype(), device=x.device)
     kinds = cfg.layer_kinds()
     for i in range(cfg.n_dense_layers):
@@ -303,6 +362,7 @@ def lm_hidden(params: Params, tokens: torch.Tensor, cfg,
                                          params["layers"][f"b{pos}"])
                for pos in range(len(layout))}
     for i in range(_n_periods(cfg)):
+        x = constraint(x, "act_stash")
         for pos, (kind, use_moe) in enumerate(layout):
             x, a = block_apply(_select(stacked[f"b{pos}"], i), x, cfg, kind,
                                use_moe, memory=memory)
@@ -319,7 +379,8 @@ def _select(unbound, i):
 
 
 def lm_head_weight(params: Params, cfg) -> torch.Tensor:
-    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return constraint(w, "head_dv")
 
 
 def chunked_xent(h2d: torch.Tensor, targets: torch.Tensor,
@@ -342,7 +403,7 @@ def chunked_xent(h2d: torch.Tensor, targets: torch.Tensor,
         hx, tx = h2d[lo:lo + chunk], targets[lo:lo + chunk]
         logits = hx.to(up) @ w32
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, tx.clamp(min=0)[:, None].long())[:, 0]
+        tgt = settle(logits.gather(-1, tx.clamp(min=0)[:, None].long()))[:, 0]
         valid = (tx >= 0).to(up)
         loss_sum = loss_sum + ((lse - tgt) * valid).sum()
         n_valid = n_valid + valid.sum()
@@ -372,7 +433,9 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg
     d = h.shape[-1]
     loss = chunked_xent(h.reshape(-1, d), targets.reshape(-1),
                         lm_head_weight(params, cfg))
-    return loss + aux
+    # on DTensors the loss is whole on every rank: the backward pass then
+    # starts from one seed, not from a seed on each rank's partial sum
+    return settle(loss + aux)
 
 
 # ---------------------------------------------------------------------------

@@ -20,10 +20,13 @@ its state in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.context import reshape, rows_local
 
 from .common import dense_init, upcast_dtype
 
@@ -139,23 +142,30 @@ def mlstm_apply(params: Params, x: torch.Tensor, cfg: XLSTMConfig
     b, t, _ = x.shape
     h, d = cfg.n_heads, cfg.head_dim_m
     up_x, gate = torch.chunk(x @ params["w_up"], 2, dim=-1)
-    q = (up_x @ params["w_q"]).reshape(b, t, h, d)
-    k = (up_x @ params["w_k"]).reshape(b, t, h, d)
-    v = (up_x @ params["w_v"]).reshape(b, t, h, d)
+    q = reshape(up_x @ params["w_q"], b, t, h, d)
+    k = reshape(up_x @ params["w_k"], b, t, h, d)
+    v = reshape(up_x @ params["w_v"], b, t, h, d)
     ig, fg = _mlstm_gates(params, up_x)
+    hy = rows_local(functools.partial(_mlstm_scan, cfg=cfg),
+                    (q, k, v, ig, fg))
+    return _readout(hy, gate, x.dtype) @ params["w_down"]
+
+
+def _mlstm_scan(q, k, v, ig, fg, *, cfg: XLSTMConfig) -> torch.Tensor:
+    """The chunkwise recurrence over (B, T, H, d) q/k/v and (B, T, H)
+    gates → (B, T, H·d)."""
+    b, t, h, d = q.shape
     ch = min(cfg.chunk, t)
     if t % ch:
         raise ValueError(f"sequence {t} is not a multiple of the mLSTM "
                          f"chunk {ch}")
-    cache = mlstm_init_cache(cfg, b, device=x.device)
-    carry = (cache["C"], cache["n"], cache["m"])
-    carry = tuple(c.to(ig.dtype) for c in carry)
+    cache = mlstm_init_cache(cfg, b, device=q.device)
+    carry = tuple(cache[n].to(ig.dtype) for n in ("C", "n", "m"))
     hys = []
     for chunk in zip(*(a.split(ch, dim=1) for a in (q, k, v, ig, fg))):
         carry, hy = _mlstm_chunk(carry, *chunk)
         hys.append(hy)
-    hy = torch.cat(hys, dim=1).reshape(b, t, h * d)
-    return _readout(hy, gate, x.dtype) @ params["w_down"]
+    return torch.cat(hys, dim=1).reshape(b, t, h * d)
 
 
 def mlstm_init_cache(cfg: XLSTMConfig, batch: int, device) -> Params:
@@ -259,20 +269,25 @@ def _slstm_ffn(params: Params, hy: torch.Tensor) -> torch.Tensor:
 def slstm_apply(params: Params, x: torch.Tensor, cfg: XLSTMConfig
                 ) -> torch.Tensor:
     """Training path.  x: (B, T, d_model); a Python loop over T."""
-    b = x.shape[0]
     up = upcast_dtype()
     xt = (x @ params["w_ifzo"]).to(up) + params["b_ifzo"].to(up)
-    r_all = _recurrent(params)
-    cache = slstm_init_cache(cfg, b, device=x.device)
-    carry = tuple(cache[n].to(up) for n in ("c", "n", "m", "h"))
+    hy = rows_local(functools.partial(_slstm_scan, cfg=cfg), (xt,),
+                    (_recurrent(params),)).to(x.dtype)        # (B,T,d)
+    return _slstm_ffn(params, hy)
+
+
+def _slstm_scan(xt, r_all, *, cfg: XLSTMConfig) -> torch.Tensor:
+    """The recurrence over (B, T, 4d) upcast input projections → (B, T,
+    d) hidden states."""
+    cache = slstm_init_cache(cfg, xt.shape[0], device=xt.device)
+    carry = tuple(cache[n].to(xt.dtype) for n in ("c", "n", "m", "h"))
     hs = []
     # unbind, not xt[:, i]: each index's backward would add a full-size
     # zero gradient of xt per step
     for x_i in xt.unbind(1):
         carry, h1 = _slstm_step(r_all, cfg, carry, x_i)
         hs.append(h1)
-    hy = torch.stack(hs, dim=1).to(x.dtype)                 # (B,T,d)
-    return _slstm_ffn(params, hy)
+    return torch.stack(hs, dim=1)
 
 
 def slstm_init_cache(cfg: XLSTMConfig, batch: int, device) -> Params:

@@ -2,7 +2,11 @@
 clipping and static loss scaling — the port of ``repro.optim.optimizer``.
 
 The state is a tree of tensors, as in the reference; ``adamw_update``
-writes the new values into it and into the params in place.  The non-finite skip is decided on the
+writes the new values into it and into the params in place.  The leaves
+may be DTensors placed by ``sharding.partition`` (tensor parallelism,
+FSDP): every op runs on them as on plain tensors, and the gradient norm
+sums each leaf's partial sums over the mesh, so it is the single-process
+step's norm.  The non-finite skip is decided on the
 device; with ``emit_guard_stats`` it is counted under
 ``guard:nonfinite_skip`` through ``stats.record_at_runtime`` (a device
 counter folded in when the counts are read — no host read here).
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.kernels import stats
+from repro_torch.sharding import partition
 
 Params = Any
 
@@ -98,7 +103,8 @@ def adamw_update(grads: Params, state: Dict[str, Any], params: Params,
     gnorm = torch.sqrt(gnorm)
     finite = torch.isfinite(gnorm)
     if cfg.emit_guard_stats:
-        stats.record_at_runtime("guard:nonfinite_skip", ~finite)
+        stats.record_at_runtime("guard:nonfinite_skip",
+                                partition.full(~finite))
     clip = torch.where(gnorm > cfg.grad_clip,
                        cfg.grad_clip / (gnorm + 1e-9),
                        torch.ones_like(gnorm))

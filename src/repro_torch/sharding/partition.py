@@ -13,10 +13,15 @@ domain.
 
 The functions take any tree whose leaves have ``.shape`` (meta tensors
 will do) and return the same structure with ``PartitionSpec`` leaves,
-equal entry for entry to the reference's.  The data-parallel path reads
-``dp_axis_names``, ``axis_size`` and ``bitmap_pspec``; placing params by
-these specs (``params_shardings``, ``to_shardings``) is the jit
-partitioner's half, ROADMAP A18b.
+equal entry for entry to the reference's.  ``NamedSharding`` (from
+``params_shardings`` and ``to_shardings``) places a tensor by a spec as a
+``torch.distributed.tensor.DTensor`` over the mesh's ``DeviceMesh``: a
+mesh dim gets ``Shard(d)`` when the spec names its axis at tensor dim
+``d``, ``Replicate()`` otherwise, so a tuple entry ``("pod", "data")``
+splits its dim over both axes in row-major order, as JAX's does.  Each
+rank keeps its own slice of the full tensor it holds (``shard``): no
+collective, so a restore does not depend on any rank's copy.  A mesh of
+one rank places nothing: its leaves stay plain tensors.
 """
 from __future__ import annotations
 
@@ -24,10 +29,9 @@ import math
 import re
 from typing import Any, Dict, Tuple
 
-from repro_torch import tree as _tree
+import torch
 
-A18B = ("placing tensors by partition specs (tensor parallelism, FSDP) is "
-        "ROADMAP A18b; the data-parallel path replicates every param")
+from repro_torch import tree as _tree
 
 
 class PartitionSpec(tuple):
@@ -69,8 +73,11 @@ def normalize_path(keystr_path: str) -> str:
         .replace("']", "").replace("[", "/").replace("]", "")
 
 
+DP_AXES = ("pod", "data")       # the data-parallel axes, outermost first
+
+
 def dp_axis_names(mesh) -> Tuple[str, ...]:
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return tuple(a for a in DP_AXES if a in mesh.axis_names)
 
 
 def axis_size(mesh, names) -> int:
@@ -191,7 +198,7 @@ def params_pspecs(params_shapes: Any, mesh, *, fsdp: bool = False) -> Any:
 
 
 def params_shardings(params_shapes: Any, mesh, *, fsdp: bool = False):
-    raise NotImplementedError(f"params_shardings: {A18B}")
+    return to_shardings(params_pspecs(params_shapes, mesh, fsdp=fsdp), mesh)
 
 
 def opt_state_pspecs(opt_shapes: Any, params_shapes: Any, mesh,
@@ -261,8 +268,153 @@ def activation_rules(mesh) -> Dict[str, P]:
     return {"act_btd": P(dp, None, None), "head_dv": P(None, "model")}
 
 
+# ---------------------------------------------------------------------------
+# Placement: specs → DTensor placements
+# ---------------------------------------------------------------------------
+
+class NamedSharding:
+    """A ``PartitionSpec`` on a mesh — the counterpart of
+    ``jax.sharding.NamedSharding``: its ``placements`` (one per mesh axis,
+    in the mesh's order), the ``local_shape`` a rank holds, and ``shard``,
+    which places a full tensor."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) else P(*spec)
+        for entry in self.spec:
+            axes = _spec_axes(entry)
+            order = [mesh.axis_names.index(a) for a in axes]
+            if order != sorted(order):
+                raise ValueError(f"spec entry {entry} is not in the mesh's "
+                                 f"axis order {mesh.axis_names}")
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh.shape}, {self.spec!r})"
+
+    @property
+    def placements(self) -> tuple:
+        return placements_of(self.spec, self.mesh.axis_names)
+
+    def places_nothing(self) -> bool:
+        """Whether every axis the spec names has size 1."""
+        return all(axis_size(self.mesh, _spec_axes(e)) == 1
+                   for e in self.spec)
+
+    def local_shape(self, shape) -> Tuple[int, ...]:
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec!r} for shape {shape}")
+        out = list(shape)
+        for d, entry in enumerate(self.spec):
+            n = axis_size(self.mesh, _spec_axes(entry))
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {shape} does not split "
+                                 f"over {entry}")
+            out[d] //= n
+        return tuple(out)
+
+    def local_slice(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (a view)."""
+        self.local_shape(full.shape)
+        x = full
+        for d, entry in enumerate(self.spec):
+            axes = _spec_axes(entry)
+            if axes:
+                k = x.shape[d] // axis_size(self.mesh, axes)
+                x = x.narrow(d, self.mesh.axis_index(axes) * k, k)
+        return x
+
+    def shard(self, full: torch.Tensor):
+        """``full`` placed on this rank: a DTensor holding a copy of this
+        rank's block, or ``full`` itself on a mesh of one rank."""
+        if self.mesh.size == 1:
+            return full
+        from torch.distributed.tensor import DTensor
+        local = self.local_slice(full).detach().clone(
+            memory_format=torch.contiguous_format)
+        return DTensor.from_local(
+            local, self.mesh.device_mesh(), self.placements,
+            run_check=False, shape=full.shape,
+            stride=torch.empty(full.shape, device="meta").stride())
+
+
+def placements_of(spec, axis_names) -> tuple:
+    """The DTensor placements of ``spec`` over mesh axes ``axis_names``:
+    ``Shard(d)`` for an axis the spec names at dim ``d``, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for a in axis_names:
+        dims = [d for d, e in enumerate(spec) if a in _spec_axes(e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
 def to_shardings(pspec_tree: Any, mesh):
-    raise NotImplementedError(f"to_shardings: {A18B}")
+    """A tree of ``PartitionSpec`` → the same tree of ``NamedSharding``."""
+    def build(t):
+        if isinstance(t, PartitionSpec):
+            return NamedSharding(mesh, t)
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return t
+
+    return build(pspec_tree)
+
+
+def place(tree: Any, shardings: Any) -> Any:
+    """Every leaf of ``tree`` placed by the matching ``NamedSharding`` of
+    the tree ``shardings``."""
+    sh = leaves_of_shardings(shardings)
+    leaves = _tree.leaves(tree)
+    if len(sh) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves, {len(sh)} shardings")
+    return _tree.unflatten_like(tree, [s.shard(x)
+                                       for s, x in zip(sh, leaves)])
+
+
+def leaves_of_shardings(shardings: Any) -> list:
+    """The ``NamedSharding`` (or ``PartitionSpec``) leaves of a tree, in
+    flatten order."""
+    if isinstance(shardings, (NamedSharding, PartitionSpec)):
+        return [shardings]
+    if isinstance(shardings, dict):
+        return [x for k in sorted(shardings)
+                for x in leaves_of_shardings(shardings[k])]
+    if isinstance(shardings, (list, tuple)):
+        return [x for v in shardings for x in leaves_of_shardings(v)]
+    return []
+
+
+def is_placed(x) -> bool:
+    """Whether ``x`` is a DTensor (a leaf placed on a mesh of ranks)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def full(x) -> torch.Tensor:
+    """The whole value of ``x``: a placed leaf is gathered (a collective
+    every rank of its mesh joins), a plain tensor is itself."""
+    return x.full_tensor() if is_placed(x) else x
+
+
+def local(x) -> torch.Tensor:
+    """This rank's block of ``x`` (``x`` itself when it is not placed)."""
+    return x.to_local() if is_placed(x) else x
+
+
+def placed_scope(tree: Any):
+    """The context to compute on ``tree`` in: when any leaf is placed, one
+    in which a plain tensor meeting a DTensor counts as replicated (model
+    code makes positions, masks and constants as plain tensors, the same
+    on every rank); otherwise none."""
+    import contextlib
+    if not any(is_placed(x) for x in _tree.leaves(tree)):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 # ---------------------------------------------------------------------------

@@ -226,8 +226,8 @@ def test_train_loop_resume_equals_uninterrupted(tmp_path):
 
 def test_unported_families_raise():
     """Every SMOKE architecture builds, in f32 and in its config's bf16
-    default (sliding windows, Mamba, xLSTM: ROADMAP A16c); FSDP still
-    raises (A18b)."""
+    default (sliding windows, Mamba, xLSTM: ROADMAP A16c); FSDP without
+    a mesh to place on is refused (A18b places with one)."""
     for name in sorted(T_SMOKE):
         p32 = ttr.lm_init(0, T_SMOKE[name], dtype=torch.float32,
                           device="cpu")
@@ -237,7 +237,7 @@ def test_unported_families_raise():
         assert p16["embed"].dtype == torch.bfloat16
         assert [x.shape for x in ttree.leaves(p16)] == \
             [x.shape for x in ttree.leaves(p32)]
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(ValueError, match="fsdp"):
         train_loop(T_SMOKE["smollm-360m"], TTrainConfig(), batch_size=2,
                    seq_len=4, steps=1, fsdp=True, device="cpu")
     full = T_ARCHS["smollm-360m"]

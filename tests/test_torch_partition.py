@@ -4,7 +4,8 @@ package's: every spec of every architecture's params, optimizer state,
 batches and decode caches equal entry for entry at both production meshes,
 with and without FSDP.  The shapes come from ``jax.eval_shape`` of the
 reference's initializers and reach the port as meta tensors.  The jit
-partitioner's entry points raise, naming ROADMAP A18b."""
+partitioner's entry points place (``NamedSharding``); placing on ranks is
+held in tests/test_torch_tp.py."""
 import functools
 
 import numpy as np
@@ -162,19 +163,29 @@ def test_sparse_tensor_pspecs():
 
 
 def test_partitioner_entry_points_raise_a18b():
+    """The jit partitioner's entry points (ROADMAP A18b, once raising)
+    now place: ``params_shardings``/``to_shardings`` give
+    ``NamedSharding``s with the spec's DTensor placements, and
+    ``constraint`` under rules refuses a plain tensor it would shard when
+    no mesh sizes the rule."""
+    from torch.distributed.tensor import Replicate, Shard
     tm = tmesh.make_abstract_mesh((2, 2), ("data", "model"))
     meta = {"w": torch.empty(4, 4, device="meta")}
-    with pytest.raises(NotImplementedError, match="A18b"):
-        tpart.params_shardings(meta, tm)
-    with pytest.raises(NotImplementedError, match="A18b"):
-        tpart.to_shardings({"w": tpart.P()}, tm)
+    sh = tpart.params_shardings(meta, tm)["w"]
+    assert isinstance(sh, tpart.NamedSharding)
+    assert sh.placements == (Replicate(), Replicate())   # "w" replicates
+    got = tpart.to_shardings({"w": tpart.P("data", "model"),
+                              "b": [tpart.P()]}, tm)
+    assert got["w"].placements == (Shard(0), Shard(1))
+    assert got["w"].local_shape((4, 6)) == (2, 3)
+    assert got["b"][0].placements == (Replicate(), Replicate())
     x = torch.ones(2)
     assert tctx.constraint(x, "act_btd") is x
     rules = tpart.activation_rules(tm)
     with tctx.sharding_rules(rules):
         assert tctx.current_rules() is rules
         assert tctx.constraint(x, "not_a_rule") is x
-        with pytest.raises(NotImplementedError, match="A18b"):
+        with pytest.raises(TypeError, match="act_btd"):
             tctx.constraint(x, "act_btd")
     assert tctx.current_rules() is None
 

@@ -409,9 +409,16 @@ def test_spmd_train_loop_guards():
     with pytest.raises(ValueError, match="microbatch"):
         train_loop(cfg, TrainConfig(microbatches=2), mesh=one, spmd=True,
                    **kw)
-    with pytest.raises(NotImplementedError, match="A18b"):
-        train_loop(cfg, TrainConfig(), mesh=one, **kw)
-    with pytest.raises(NotImplementedError, match="A18b"):
+    # a mesh without spmd places by the partition rules; on a mesh of one
+    # rank nothing is placed, and the run is the run without a mesh
+    one_dm = init_mesh((1, 1), ("data", "model"), backend=None,
+                       device="cpu")
+    placed = train_loop(cfg, TrainConfig(), mesh=one_dm, **kw)
+    plain = train_loop(cfg, TrainConfig(), **kw)
+    assert placed["losses"] == plain["losses"]
+    assert all(torch.equal(a, b) for a, b in zip(
+        ttree.leaves(placed["params"]), ttree.leaves(plain["params"])))
+    with pytest.raises(ValueError, match="fsdp"):
         train_loop(cfg, TrainConfig(), fsdp=True, **kw)
     with pytest.raises(ValueError, match="data-parallel axis"):
         tspmd.data_axes(make_abstract_mesh((2,), ("model",)))
@@ -419,8 +426,10 @@ def test_spmd_train_loop_guards():
 
 def test_restore_resharded_replicated_placement(tmp_path):
     """Every rank restores the whole tree onto its own device (the
-    replicated placement the data-parallel path runs); any sharded
-    placement is A18b's.  A save of the reference restores too."""
+    replicated placement the data-parallel path runs).  A bare
+    PartitionSpec that shards has no mesh to place on: sharded restores
+    take ``NamedSharding``s (tests/test_torch_tp.py).  A save of the
+    reference restores too."""
     from repro import checkpoint as jckpt
     from repro_torch import checkpoint as tckpt
     from repro_torch.sharding.partition import P
@@ -436,7 +445,7 @@ def test_restore_resharded_replicated_placement(tmp_path):
         assert step == want_step
         assert torch.equal(back["w"], tree["w"])
         assert torch.equal(back["b"][0], tree["b"][0])
-    with pytest.raises(NotImplementedError, match="A18b"):
+    with pytest.raises(ValueError, match="NamedSharding"):
         tckpt.restore_resharded(str(tmp_path / "t"), tpl,
                                 {"w": P("data", None), "b": [P(None)]})
 
