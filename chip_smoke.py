@@ -150,6 +150,17 @@ Phases (any failure makes the exit code nonzero):
      dense FFN under the ranks' own masks, its counts against the
      single-process call's, every kernel call held against its plain
      version at the shard's shapes.
+ 14. per-period rematerialisation (``cfg.remat``; run after phase 13,
+     before phase 12's dry runs; phases 7-13 run their LMs at
+     ``remat=False``): seamless-m4t-medium at full width and depth (its
+     ReLU FFN under IN_OUT_WR on the kernels, K1-K3, the split-K reduce
+     and the NaN fix-up) on phase 8's batch, and SmolLM-360M on phase 7's,
+     each three AdamW steps at remat=False and at remat=True from the
+     same params and batches: step ms, peak memory, losses, launches a
+     step; the first step's gradients and the final params and moments
+     within REMAT_LEAF_RTOL, equal count dicts, seamless's launches up by
+     exactly one forward's a step and its peak lower at remat=True, and a
+     fault planted in the recomputation only rejected.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, it exits nonzero and prints no result.
@@ -984,7 +995,8 @@ def held_against_plain(dev, tag, report=None, detail=None,
         if timing:
             return out, bits
         layer = stats.current_layer()
-        role = "FP" if once(("layer", layer)) else \
+        again = stats.recomputing()      # under cfg.remat: the forward again
+        role = "FP" if once(("layer", layer, again)) else \
             "WG" if a.stride(-1) != 1 else "dX"
         g, m, k = a.shape
         n = b.shape[2]
@@ -1018,7 +1030,8 @@ def held_against_plain(dev, tag, report=None, detail=None,
         plan = {"path": mm.gemm_path(g, m, k, n, spec.block),
                 "splits": mm.split_plan(g, m, k, n, spec.block),
                 "block": spec.block, "emit_gran": emit}
-        case = (f"{tag} {layer} {role} {g}x{m}x{k}x{n}"
+        case = (f"{tag} {layer} {role}{' recomputed' if again else ''} "
+                f"{g}x{m}x{k}x{n}"
                 + (" sigma-prime" if mult is not None else "")
                 + ("" if emit is None else f" emit {emit}"))
         if report is None or not once((
@@ -1865,6 +1878,16 @@ LM_RESUME_RTOL = 1e-6
 AUTOTUNE_GEOM = dict(image_size=224, width=1.0, num_classes=1000, batch=8)
 
 
+def without_remat(cfg, tag=None):
+    """``cfg`` at ``remat=False``, printed under ``tag`` (a rank of a pool
+    passes None but on rank 0): the LM phases 7-13 time their steps
+    without the recomputation, as the runs before ``cfg.remat`` did, so
+    their rows compare with those (phase 14 times both)."""
+    if tag is not None:
+        print(f"{tag}: remat=False", flush=True)
+    return cfg.with_(remat=False)
+
+
 def lm_first_step_rule(dev, cfg, tcfg):
     """The first step's loss and gradients against float64, and the rule
     against its LM_CONTROLS faults."""
@@ -1936,7 +1959,7 @@ def lm_phase(dev):
     from repro_torch.launch.train import train_loop
     from repro_torch.runtime.guards import StepGuard
 
-    cfg = ARCHS[LM_ARCH]
+    cfg = without_remat(ARCHS[LM_ARCH], LM_ARCH)
     tcfg = TrainConfig(total_steps=LM_STEPS, checkpoint_every=0,
                        keep_checkpoints=1, seed=0)
     ckdir = os.path.join(HERE, "build", "smoke_lm_checkpoint")
@@ -2338,7 +2361,8 @@ def seamless_phase(dev):
     from repro_torch.models.transformer import lm_init
 
     tag = SEAMLESS
-    cfg = ARCHS[SEAMLESS].with_(sparse_ffn_scenario="IN_OUT_WR")
+    cfg = without_remat(ARCHS[SEAMLESS], tag).with_(
+        sparse_ffn_scenario="IN_OUT_WR")
     dense = cfg.with_(sparse_ffn_scenario=None)
     params = lm_init(0, cfg, dtype=torch.float32, device=dev)
     batch = train_batch(cfg, 0, 0, batch=FAM_BATCH, seq_len=FAM_SEQ,
@@ -2550,7 +2574,7 @@ def internvl2_phase(dev):
     from repro_torch.models.transformer import lm_init
 
     tag = INTERNVL2
-    cfg = ARCHS[INTERNVL2]
+    cfg = without_remat(ARCHS[INTERNVL2], tag)
     params = lm_init(0, cfg, dtype=torch.float32, device=dev)
     batch = train_batch(cfg, 0, 0, batch=FAM_BATCH, seq_len=FAM_SEQ,
                         device=dev)
@@ -2599,7 +2623,8 @@ def deepseek_phase(dev):
     from repro_torch.runtime.guards import StepGuard
 
     tag = f"{DEEPSEEK} ({DEEPSEEK_LAYERS} layers)"
-    cfg = ARCHS[DEEPSEEK].with_(n_layers=DEEPSEEK_LAYERS)
+    cfg = without_remat(ARCHS[DEEPSEEK], tag).with_(
+        n_layers=DEEPSEEK_LAYERS)
     tcfg = TrainConfig(total_steps=DEEPSEEK_STEPS, checkpoint_every=0,
                        keep_checkpoints=1, seed=0)
     params = lm_init(tcfg.seed, cfg, dtype=torch.float32, device=dev)
@@ -2900,7 +2925,7 @@ def gemma3_phase(dev):
     from repro_torch.models.transformer import lm_init, lm_loss
     from repro_torch.optim.optimizer import OptConfig, adamw_init
 
-    cfg = ARCHS[GEMMA3]
+    cfg = without_remat(ARCHS[GEMMA3], GEMMA3)
     free(dev)
     params = lm_init(0, cfg, dtype=torch.bfloat16, device=dev)
     print(f"{GEMMA3}: {n_params(params) / 1e9:.3f} B params, "
@@ -3025,7 +3050,7 @@ def xlstm_phase(dev):
     from repro_torch.models import transformer, xlstm
     from repro_torch.models.transformer import lm_init
 
-    cfg = ARCHS[XLSTM]
+    cfg = without_remat(ARCHS[XLSTM], XLSTM)
     tag = XLSTM
     free(dev)
     tcfg = TrainConfig(total_steps=XLSTM_STEPS, checkpoint_every=XLSTM_CUT,
@@ -3743,7 +3768,8 @@ def lm_spmd_rank(device, smoke, ckdir):
     set_full_precision()
     dev = torch.device(device)
     mesh = dp_mesh(dev)
-    cfg = (SMOKE_ARCHS if smoke else ARCHS)[LM_ARCH]
+    cfg = without_remat((SMOKE_ARCHS if smoke else ARCHS)[LM_ARCH],
+                        f"lm_spmd {LM_ARCH}" if mesh.rank == 0 else None)
     seq = 32 if smoke else LM_SEQ
     tcfg = TrainConfig(total_steps=DP_LM_STEPS, warmup_steps=1,
                        checkpoint_every=0, keep_checkpoints=1, seed=0)
@@ -4356,7 +4382,9 @@ def lm_tp_rank(device, smoke, fsdp, ckdir, layers=None):
     set_full_precision()
     dev = torch.device(device)
     mesh = tp_mesh(dev)
-    cfg = (SMOKE_ARCHS if smoke else ARCHS)[LM_ARCH]
+    name = "lm_fsdp" if fsdp else "lm_tp"
+    cfg = without_remat((SMOKE_ARCHS if smoke else ARCHS)[LM_ARCH],
+                        f"{name} {LM_ARCH}" if mesh.rank == 0 else None)
     if smoke:
         cfg = cfg.with_(vocab_size=49152)
     if layers:
@@ -4365,7 +4393,8 @@ def lm_tp_rank(device, smoke, fsdp, ckdir, layers=None):
     tcfg = TrainConfig(total_steps=TP_STEPS, warmup_steps=1,
                        checkpoint_every=0, keep_checkpoints=1, seed=0)
 
-    def run(steps, mesh_=mesh, ckpt_dir=None, spmd=False, gather=True):
+    def run(steps, mesh_=mesh, ckpt_dir=None, spmd=False, gather=True,
+            cfg=cfg):
         stamps = [time.perf_counter()]
         res = train_loop(cfg, tcfg, batch_size=LM_BATCH, seq_len=seq,
                          steps=steps, ckpt_dir=ckpt_dir, log_every=0,
@@ -4401,6 +4430,12 @@ def lm_tp_rank(device, smoke, fsdp, ckdir, layers=None):
         [p for p, _ in tree.leaves_with_paths(res["params"])], shapes)
         if p.endswith("['ffn']['w_down']"))
     del res, state
+    # the same steps at remat=True: DTensor params under the checkpoint,
+    # its recomputation on autograd's device thread
+    rres, rleaves, rms = run(TP_STEPS, cfg=cfg.with_(remat=True))
+    out["remat"] = (rres["losses"], rms,
+                    rleaves if mesh.rank == 0 else None)
+    del rres, rleaves
     out["faults"] = {}
     for fault in TP_FAULTS:
         with _plant(fault, mesh, fault_shape):
@@ -4485,6 +4520,16 @@ def lm_tp_path(pool, dev, fsdp, smoke=False, ckdir=None, layers=None):
               f"sparse kernels")
     print(f"phase 13 {name}: first-step loss rel {first:.2e}, worst leaf "
           f"after step {TP_STEPS} rel L2 {worst:.2e}", flush=True)
+    r_losses, r_ms, r_leaves = r0["remat"]
+    print(f"phase 13 {name} remat=True: losses {r_losses} (remat=False "
+          f"{r0['losses']}); rank 0's step ms {[round(x, 1) for x in r_ms]}",
+          flush=True)
+    check(all(r["remat"][0] == r["losses"] for r in rows)
+          and leaf_rule(name, f"params after {TP_STEPS} steps, remat=True "
+                        f"vs remat=False", r_leaves, r0["leaves"]),
+          f"{name}: {TP_STEPS} steps at remat=True on every rank give "
+          f"remat=False's losses, and rank 0's params within "
+          f"{REMAT_LEAF_RTOL} of them")
     check(ok, f"{name}: first-step loss within {LM_LOSS_RTOL} and every "
           f"leaf within {LM_GRAD_RTOL} (relative L2) of the single-process "
           f"loop's")
@@ -4794,6 +4839,325 @@ def tp_phase(dev, small=False, layers=TP_LAYERS):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: per-period rematerialisation (cfg.remat)
+# ---------------------------------------------------------------------------
+
+# Each path runs REMAT_STEPS AdamW steps at remat=False and again at
+# remat=True from the same params and batches (phase 8's and phase 7's);
+# the two runs' first-step gradient leaves and final params and moments
+# agree within REMAT_LEAF_RTOL relative L2 (bit-equal expected), and a
+# fault planted in the recomputation only (REMAT_PLANT added to one
+# element of the input of the first decoder period recomputed) breaks
+# that rule.  seamless's ReLU FFN runs on the kernels (REMAT_KERNELS),
+# whose launches at remat=True are remat=False's plus the recomputed
+# forward's: those of one forward of the loss, a step.
+REMAT_STEPS, REMAT_LEAF_RTOL, REMAT_PLANT = 3, 1e-6, 1.0
+REMAT_KERNELS = ("relu_encode", "queue_builder", "compact_gemm",
+                 "splitk_reduce", "emit_nan_fixup")
+REMAT_SMALL = (2, 16)
+
+
+@contextlib.contextmanager
+def ffn_on_kernels():
+    """The ``IN_OUT_WR`` scenario's policy on the kernels
+    (``kernel_impl="pallas"``) inside the block: a config with
+    ``sparse_ffn_scenario="IN_OUT_WR"`` then runs its ReLU FFNs through
+    K1-K3 (outside it, the masked plain path, as in the reference)."""
+    from repro_torch.core import policy
+    prev = policy.SCENARIOS["IN_OUT_WR"]
+    policy.SCENARIOS["IN_OUT_WR"] = prev.with_(kernel_impl="pallas")
+    try:
+        yield
+    finally:
+        policy.SCENARIOS["IN_OUT_WR"] = prev
+
+
+def planted_in_recompute():
+    """The recomputation hook of REMAT_PLANT: the first decoder period
+    recomputed (the last one; a period's inputs are (x, layers, memory))
+    gets REMAT_PLANT added to one element of its input."""
+    import torch
+    from repro_torch.kernels import stats
+    done = []
+
+    def hook(args):
+        if done or not isinstance(args[0], torch.Tensor):
+            return args
+        done.append(True)
+        d = torch.zeros_like(args[0])
+        d.view(-1)[d.numel() // 3] = REMAT_PLANT
+        return (args[0] + d,) + tuple(args[1:])
+    return hooked(stats.set_recompute_hook, hook)
+
+
+def remat_run(dev, cfg, params, batches, keep_on_host):
+    """REMAT_STEPS steps of ``make_train_step`` from a copy of ``params``:
+    (losses, step ms, peak GiB or None, launches, count dict, the leaves
+    of the final params and optimizer state).  ``keep_on_host`` moves
+    them to the host, so that the next run's peak holds none of them."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.kernels import stats
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.optimizer import OptConfig, adamw_init
+
+    p = tree.tree_map(lambda x: x.detach().clone(), params)
+    o = adamw_init(p)
+    step_fn = make_train_step(cfg, OptConfig())
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    stats.reset()
+    kernels.reset_launch_counts()
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        p, o, m = step_fn(p, o, b)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = kernels.launch_counts()
+    counts = stats.counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else None
+    state = [x.detach().cpu() if keep_on_host else x.detach()
+             for x in tree.leaves({"params": p, "opt": o})]
+    del p, o
+    if cuda:
+        torch.cuda.empty_cache()
+    return losses, ms, peak, launches, counts, state
+
+
+def leaf_rule(tag, what, got, want):
+    """Does every floating-point leaf of ``got`` lie within
+    REMAT_LEAF_RTOL relative L2 of ``want``'s, and every integer leaf (the
+    optimizer's step) equal it?  Prints the worst leaf and max |delta|."""
+    import torch
+    from repro_torch.conditioning import leaf_rels
+    ints = [(a, b) for a, b in zip(got, want) if not b.is_floating_point()]
+    got, want = zip(*[(a, b) for a, b in zip(got, want)
+                      if b.is_floating_point()])
+    rels = leaf_rels(got, want)
+    delta = max(float((a.double() - b.double()).abs().max())
+                for a, b in zip(got, want))
+    worst = max(rels)
+    passed = worst <= REMAT_LEAF_RTOL and all(torch.equal(a, b)
+                                              for a, b in ints)
+    print(f"{tag} {what}: {len(rels)} leaves, worst relative L2 "
+          f"{worst:.3e}, max |delta| {delta:.3e}, "
+          f"{sum(r == 0 for r in rels)} of {len(rels)} with rel 0; "
+          f"{'passes' if passed else 'fails'} the rule "
+          f"({REMAT_LEAF_RTOL:g})", flush=True)
+    return passed
+
+
+def plain_rule(tag, loss, grads, masks, cfg, params, batch):
+    """The kernel path's first step (its ``loss``, ``grads`` and the ReLU
+    ``masks`` its FFNs took) against the plain step of ``cfg``'s dense FFN
+    (bit-equal to the IN_OUT_WR plain path's, phase 8; only the dense FFN
+    takes a replaced mask) under those masks, as phase 8 holds the step
+    against float64: the
+    two forwards' GEMMs sum in different orders, so a few pre-activations
+    within rounding of 0 take the other side of the ReLU, and each such
+    flip moves the gradient leaves below it by up to ~1e-3 relative L2.
+    Phase 7's rule: the loss within LM_LOSS_RTOL, each gradient leaf
+    within LM_GRAD_RTOL relative L2; and phase 8's: one mask an FFN, the
+    flips against the plain step's own masks within FLIP_SHARE.  Prints
+    the flips and the worst leaf."""
+    import torch
+    from repro_torch.conditioning import leaf_rels
+    from repro_torch.models import ffn
+
+    dense = cfg.with_(sparse_ffn_scenario=None)
+    own = []
+    lm_grads(dense, params, batch, torch.float32, hooked(
+        ffn.set_relu_mask_hook, lambda h: own.append(h > 0)))
+    flips = sum(int((a != b).sum()) for a, b in zip(masks, own))
+    total = sum(a.numel() for a in masks)
+    same_masks = len(masks) == len(own) > 0
+    del own
+    replay = iter(masks)
+    loss_p, grads_p = lm_grads(dense, params, batch, torch.float32, hooked(
+        ffn.set_relu_mask_hook, lambda h: next(replay)))
+    rels = leaf_rels(grads, grads_p)
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    a, b = grads[worst], grads_p[worst]
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    print(f"{tag} first step at remat=True, kernels against the plain "
+          f"step under their {len(masks)} ReLU masks ({flips} of {total} "
+          f"sigma-prime flips against its own): loss rel "
+          f"{loss_rel:.2e}; {len(rels)} "
+          f"leaves, worst relative L2 {rels[worst]:.3e} (leaf {worst}, "
+          f"max|delta| {float((a - b).abs().max() / b.abs().max()):.3e} "
+          f"of max|plain|)", flush=True)
+    return (same_masks and flips <= FLIP_SHARE * total
+            and loss_rel <= LM_LOSS_RTOL and rels[worst] <= LM_GRAD_RTOL)
+
+
+def remat_path(dev, tag, cfg, params, batches, kernel_names=(),
+               lower_peak=False):
+    """One path of phase 14, its ReLU FFNs on the kernels
+    (``ffn_on_kernels``): the first step's gradients at remat=False and
+    True (with ``kernel_names``, every kernel call of the remat=True step
+    held against its plain version and the step against the plain path's)
+    and with the planted fault, then REMAT_STEPS steps at each setting (on
+    the card each of ``kernel_names`` launched, and with ``lower_peak``
+    the peak lower at remat=True).  Returns the launches of the remat=True
+    run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import stats
+    from repro_torch.models import ffn
+    from repro_torch.models.transformer import lm_loss
+
+    off, on = cfg.with_(remat=False), cfg.with_(remat=True)
+    with ffn_on_kernels():
+        with torch.no_grad():
+            stats.reset()
+            _, fwd = launches_of(lm_loss, params, batches[0], on)
+            c_fwd = stats.counts()
+        _, g_off = lm_grads(off, params, batches[0], torch.float32)
+        stats.reset()
+        if not kernel_names:
+            _, g_on = lm_grads(on, params, batches[0], torch.float32)
+        else:
+            # the first forward's dispatches, queues and encodes, and the
+            # recomputation's (one forward's, uncounted in the count dict)
+            masks = []
+            with held_against_plain(dev, tag, zero_slack=True) as (
+                    held, _, _):
+                loss_on, g_on = lm_grads(on, params, batches[0],
+                                         torch.float32, hooked(
+                                             ffn.set_relu_mask_hook,
+                                             lambda h: masks.append(h > 0)))
+            c = stats.counts()
+            stats.reset()
+            want = {"gemm": _sum(c, "gemm:") + _sum(c_fwd, "gemm:"),
+                    "queue": c.get("queue:prefix_sum", 0)
+                    + c_fwd.get("queue:prefix_sum", 0),
+                    "encode": c.get("encode:act", 0)
+                    + c_fwd.get("encode:act", 0)}
+            check(all(held[k] == want[k] for k in want)
+                  and want["gemm"] > 0 and want["encode"] > 0,
+                  f"{tag}: the remat=True step held every dispatch, queue "
+                  f"and encode of its forward, recomputation and backward "
+                  f"against its plain version ({held}; the step's counts "
+                  f"with one forward's {want})")
+            check(plain_rule(tag, loss_on, g_on, masks, on, params,
+                             batches[0]),
+                  f"{tag}: the remat=True step on the kernels within "
+                  f"{LM_LOSS_RTOL} (loss) and {LM_GRAD_RTOL} (each leaf, "
+                  f"relative L2) of the plain step's under its ReLU masks, "
+                  f"one mask an FFN, flips within {FLIP_SHARE}")
+            del masks
+        check(leaf_rule(tag, "first-step gradients, remat=True vs "
+                        "remat=False", g_on, g_off),
+              f"{tag}: remat=True's first-step gradients within "
+              f"{REMAT_LEAF_RTOL} of remat=False's")
+        del g_on
+        _, g_bad = lm_grads(on, params, batches[0], torch.float32,
+                            planted_in_recompute())
+        check(not leaf_rule(tag, "first-step gradients with a fault "
+                            "planted in the recomputation", g_bad, g_off),
+              f"{tag}: the leaf rule rejects a period input perturbed in "
+              f"the recomputation only")
+        del g_bad, g_off
+        stats.reset()
+        runs = {}
+        for remat, c in ((False, off), (True, on)):
+            runs[remat] = remat_run(dev, c, params, batches,
+                                    keep_on_host=not remat)
+            losses, ms, peak, launches, counts, _ = runs[remat]
+            print(f"{tag} remat={remat}: {REMAT_STEPS} steps, losses "
+                  f"{losses}; step ms {[round(x, 2) for x in ms]}, median "
+                  f"of steps 2-{REMAT_STEPS} "
+                  f"{statistics.median(ms[1:]):.1f} ms; peak "
+                  + ("not measured (CPU)" if peak is None
+                     else f"{peak:.2f} GiB")
+                  + f"; launches a step "
+                  f"{ {k: launches[k] / REMAT_STEPS for k in REMAT_KERNELS} }"
+                  f"; counts {counts}", flush=True)
+    l_off, _, pk_off, la_off, c_off, s_off = runs[False]
+    l_on, _, pk_on, la_on, c_on, s_on = runs[True]
+    rels = [abs(a - b) / abs(b) for a, b in zip(l_on, l_off)]
+    check(max(rels) <= REMAT_LEAF_RTOL,
+          f"{tag}: every step's loss at remat=True within "
+          f"{REMAT_LEAF_RTOL} of remat=False's ({rels})")
+    check(leaf_rule(tag, f"params and AdamW moments after {REMAT_STEPS} "
+                    f"steps", s_on, [x.to(dev) for x in s_off]),
+          f"{tag}: params and moments after {REMAT_STEPS} steps at "
+          f"remat=True within {REMAT_LEAF_RTOL} of remat=False's")
+    check(c_on == c_off,
+          f"{tag}: the count dicts at remat=True and remat=False are equal "
+          f"({c_on} vs {c_off})")
+    extra = {k: la_on[k] - la_off[k] for k in la_on}
+    print(f"{tag}: launches at remat=True less remat=False {extra}; one "
+          f"forward of the loss launches {fwd} (x {REMAT_STEPS} steps)",
+          flush=True)
+    check(all(la_on[k] == la_off[k] + REMAT_STEPS * fwd[k] for k in la_on),
+          f"{tag}: each kernel's launches at remat=True are remat=False's "
+          f"plus the recomputed forward's")
+    del s_on, s_off
+    if dev.type == "cuda":
+        check_path_kernels(f"{tag} remat=True", la_on, kernel_names)
+    if dev.type == "cuda" and lower_peak:
+        check(pk_on < pk_off,
+              f"{tag}: the peak at remat=True below remat=False's "
+              f"({pk_on:.2f} vs {pk_off:.2f} GiB)")
+    kernels.reset_launch_counts()
+    return la_on
+
+
+REMAT_PATHS = ("lm_remat_seamless", "lm_remat_smollm360m")
+
+
+def remat_phase(dev, small=False, paths=REMAT_PATHS):
+    """Phase 14: ``cfg.remat``'s checkpointed encoder layers and decoder
+    periods against ``remat=False``: seamless-m4t-medium at full width and
+    depth (``IN_OUT_WR``, its ReLU FFN on the kernels) on phase 8's batch
+    and SmolLM-360M on phase 7's (``small``: their SMOKE configs at
+    REMAT_SMALL, the CPU rehearsal; ``paths`` a part of REMAT_PATHS).
+    Returns its launches by path."""
+    import torch
+    from repro_torch.configs import ARCHS, SMOKE_ARCHS
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models.transformer import lm_init
+
+    t0 = time.perf_counter()
+    archs = SMOKE_ARCHS if small else ARCHS
+    by_path = {}
+    # SmolLM's peak at 8 x 128 is AdamW's, not its activations': no
+    # peak rule there
+    for path, arch, (b, t), names, lower_peak in (
+            ("lm_remat_seamless", SEAMLESS, (FAM_BATCH, FAM_SEQ),
+             REMAT_KERNELS, True),
+            ("lm_remat_smollm360m", LM_ARCH, (LM_BATCH, LM_SEQ), (),
+             False)):
+        if path not in paths:
+            continue
+        t1 = time.perf_counter()
+        if small:
+            b, t = REMAT_SMALL
+        cfg = archs[arch]
+        if arch == SEAMLESS:
+            cfg = cfg.with_(sparse_ffn_scenario="IN_OUT_WR")
+        params = lm_init(0, cfg, dtype=torch.float32, device=dev)
+        batches = [train_batch(cfg, 0, i, batch=b, seq_len=t, device=dev)
+                   for i in range(REMAT_STEPS)]
+        by_path[path] = remat_path(dev, arch, cfg, params, batches, names,
+                                   lower_peak)
+        del params, batches
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"phase 14 {path}: {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    print(f"phase 14 (per-period rematerialisation): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
 # Phase 12: the dry run, the analytic cost model and the roofline
 # ---------------------------------------------------------------------------
 
@@ -4930,7 +5294,8 @@ def cost_phase(dev, runs):
                      dtype=MEASURED[name][2])
             for name in BOUND_PATHS if name in MEASURED]
     print("phase 12 roofline of the measured paths (launch.flops at each "
-          "path's own shape on one card, remat=False; measured: phases "
+          "path's own shape on one card, at the remat it ran: False in "
+          "phases 7-9; measured: phases "
           f"7-9's median step or tick, host clock; float32 peak with "
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
           "):\n" + paths_table(rows), flush=True)
@@ -4944,7 +5309,7 @@ def cost_phase(dev, runs):
     # collective bytes: phase 10's profiled step against wire_bytes()
     cfg, shape = MEASURED["SmolLM-360M step"][:2] \
         if "SmolLM-360M step" in MEASURED else (None, None)
-    ar = flops.analytic_cost(cfg.with_(remat=False), shape, dp_n=DP_RANKS,
+    ar = flops.analytic_cost(cfg, shape, dp_n=DP_RANKS,
                              model_n=1).detail["coll_dp_ar"] if cfg else None
     check(len(DP_TRACE) == DP_RANKS, "phase 12: phase 10's profiled step "
           "came back from every rank")
@@ -5027,6 +5392,7 @@ def run_phases(torch, dev, runs):
     by_path.update(dp_phase(dev))
     by_path.update(analysis_phase(dev))
     by_path.update(tp_phase(dev))
+    by_path.update(remat_phase(dev))
     runs += start_dryruns()
     by_path["dryrun"] = cost_phase(dev, runs)
 

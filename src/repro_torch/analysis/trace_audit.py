@@ -27,7 +27,12 @@ The checks are the reference's, each on the log:
 
   RESCAN           the same tensor is scanned/encoded for a bitmap more
                    than once per step (ONE fused encode per activation;
-                   every later mask is derived).
+                   every later mask is derived).  Under ``cfg.remat`` the
+                   backward recomputes each checkpointed region, its
+                   encodes included, inside a ``repro:remat`` tag: an
+                   encode so tagged, of a tensor the first forward
+                   encoded in the same layer, is that activation's
+                   recomputation, not a rescan.
   UNDERIVED_MASK   an integer mask enters a GEMM dispatch without being
                    reachable from an encode/scan/derive/queue/collective
                    region through pure bitmap arithmetic.
@@ -141,6 +146,7 @@ class OpRecord:
     namespace: str
     tag: Optional[ParsedTag]      # innermost lifecycle region, if any
     layer: str                    # innermost layer:<name>, or ""
+    remat: bool                   # inside a recomputation (repro:remat)
     ins: Tuple[Arg, ...]
     outs: Tuple[Arg, ...]         # fresh results and written inputs
 
@@ -207,7 +213,8 @@ class Trace:
         idx = len(self.ops)
         self.ops.append(OpRecord(
             idx, name, full_name, namespace,
-            parse_tag(tags[-1]) if tags else None, layer, tuple(ins),
+            parse_tag(tags[-1]) if tags else None, layer,
+            any(t.startswith("repro:remat:") for t in tags), tuple(ins),
             tuple(outs)))
         for a in outs:
             self.writers[a.key].append(idx)
@@ -361,6 +368,8 @@ def _check_rescan(trace: Trace, regions, workload) -> List[Violation]:
         layer = _region_layer(region)
         if ident in seen:
             first_tag, first_layer = seen[ident]
+            if region[0].remat and layer == first_layer:
+                continue          # the recomputation of a remat region
             out.append(Violation(
                 "trace", "RESCAN", layer or first_layer,
                 f"tensor scanned twice: {parsed.kind} region {tag} re-scans "

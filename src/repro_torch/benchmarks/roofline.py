@@ -24,10 +24,6 @@ _DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
 _FINAL = os.path.join(_DIR, "dryrun_final.jsonl")
 RESULTS = _FINAL if os.path.exists(_FINAL) else os.path.join(_DIR,
                                                             "dryrun.jsonl")
-# The port runs no per-period remat (ROADMAP Queue C): a measured path is
-# bounded without the registry's fourth forward pass.
-REMAT_NOTE = "remat=False: the port runs no per-period remat"
-
 
 def load(path: str = RESULTS, mesh: Optional[str] = "16x16") -> List[dict]:
     recs = {}
@@ -88,13 +84,13 @@ def markdown_table(path: str = RESULTS, mesh: str = "16x16") -> str:
 def path_row(name: str, cfg, shape, measured_ms: Optional[float], *,
              dtype: str) -> dict:
     """A measured path beside its analytic bound at its own shape on one
-    card (``dp_n = model_n = 1``, ``remat=False``): FLOPs, bytes, the
-    compute and memory terms on the peak of ``dtype`` (the dtype its GEMMs
-    compute in; for float32, as this process sets ``allow_tf32``), the
-    dominant term, the measured ms and the roofline fraction bound /
-    measured."""
-    ac = aflops.analytic_cost(cfg.with_(remat=False), shape, dp_n=1,
-                              model_n=1)
+    card (``dp_n = model_n = 1``) at the ``remat`` it ran (``cfg.remat``:
+    a train path that recomputed its forward is bounded with that fourth
+    pass): FLOPs, bytes, the compute and memory terms on the peak of
+    ``dtype`` (the dtype its GEMMs compute in; for float32, as this
+    process sets ``allow_tf32``), the dominant term, the measured ms and
+    the roofline fraction bound / measured."""
+    ac = aflops.analytic_cost(cfg, shape, dp_n=1, model_n=1)
     rl = ha.roofline_terms(hlo_flops=ac.flops_per_device,
                            hlo_bytes=ac.hbm_bytes_per_device,
                            coll_bytes=ac.coll_bytes_per_device,
@@ -110,7 +106,7 @@ def path_row(name: str, cfg, shape, measured_ms: Optional[float], *,
         "measured_ms": measured_ms,
         "roofline_fraction": None if not measured_ms
         else bound_ms / measured_ms,
-        "note": REMAT_NOTE,
+        "remat": cfg.remat,
     }
 
 

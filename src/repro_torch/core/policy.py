@@ -21,6 +21,7 @@ import dataclasses
 from typing import Literal, Optional, Tuple
 
 from repro_torch.kernels import autotune as _autotune
+from repro_torch.kernels import stats as _stats
 from repro_torch.kernels.ops import GemmSpec
 from repro_torch.kernels.shapes import ceil_to
 
@@ -77,7 +78,9 @@ class SparsityPolicy:
         the ``kernels/autotune`` cache may retarget the schedule (and, with
         ``dims``, the tile edges) from measured live-tile stats; without
         it the spec is clamped to its key's quarantine level, so a demoted
-        spec stays demoted on both paths."""
+        spec stays demoted on both paths.  A recomputed forward
+        (``cfg.remat``) takes the spec its first forward resolved, and
+        resolves nothing again."""
         block = grouped_gemm_block(self, dims, grans) \
             if dims is not None else self.block
         if self.kernel_impl != "pallas":
@@ -95,8 +98,10 @@ class SparsityPolicy:
         )
         if self.autotune:
             # resolve() applies the quarantine clamp inside the cache.
-            return _autotune.resolve(spec, dims=dims, grans=grans)
-        return _autotune.apply_quarantine(spec, dims=dims)
+            return _stats.replayed_call(lambda: _autotune.resolve(
+                spec, dims=dims, grans=grans))
+        return _stats.replayed_call(lambda: _autotune.apply_quarantine(
+            spec, dims=dims))
 
 
 def grouped_gemm_block(

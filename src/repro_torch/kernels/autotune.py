@@ -35,6 +35,10 @@ the next step's resolutions (the reference's jitted step likewise keeps
 its traced schedule until it is retraced).  A pending overflow flag is
 folded before the quarantine is next read, which syncs only after a
 capacity-limited dispatch.  On the CPU the dispatcher observes at once.
+Under ``cfg.remat`` a recomputed forward feeds no sample and reports no
+overflow again, and takes the spec its first forward resolved
+(``stats.replayed_call`` in ``SparsityPolicy.gemm_spec``): the decisions
+and the log are those of ``remat=False``.
 
 The JSON documents (``export_state``, ``log_rows``) have the reference's
 keys and values, so a document written by one package imports into the

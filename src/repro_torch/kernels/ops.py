@@ -241,7 +241,7 @@ def sparse_gemm(
     int32 any-nonzero bitmap of the returned values."""
     _refuse_placed("sparse_gemm", a, b, epilogue_mult)
     spec = GemmSpec() if spec is None else spec
-    spec = _tamper("gemm:spec", spec)
+    spec = stats.replayed_call(lambda: _tamper("gemm:spec", spec))
     masks = _as_masks(masks)
     if (epilogue_mult is not None) != spec.fuses_mult:
         raise ValueError(
@@ -295,9 +295,11 @@ def _observe_live_tiles(spec: GemmSpec, a3, b3, masks: GemmMasks) -> None:
     the live counts stay device scalars, queued with the key that resolved
     the spec until ``autotune.fold_pending`` (no host sync per GEMM); a
     spec that no autotune resolution or quarantine clamp produced is not
-    observed there, so a step without the autotuner does no extra work."""
+    observed there, so a step without the autotuner does no extra work.
+    A recomputed forward's dispatches (``cfg.remat``) were observed in the
+    first forward and are not observed again."""
     present = [m for m in masks if m is not None]
-    if not present:
+    if not present or stats.recomputing():
         return
     dims = (a3.shape[1], a3.shape[2], b3.shape[2])
     if present[0].device.type != "cpu":
@@ -380,7 +382,9 @@ def _dispatch(a, b, masks: GemmMasks, spec: GemmSpec, mult):
         # the compact one exits when n_live > cap, the predicated fallback
         # when n_live <= cap — exact always, and no host sync; on the card
         # the overflow count stays on the device until stats are read.
-        if n_live.device.type == "cpu":
+        if stats.recomputing():
+            pass      # the first forward's dispatch counted and reported
+        elif n_live.device.type == "cpu":
             if int(n_live[0]) > cap:
                 stats.record("fallback:queue_overflow")
                 autotune.report_overflow(spec, (m, k, n))

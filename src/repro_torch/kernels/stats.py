@@ -37,6 +37,12 @@ autotune key, as in the reference.
 
 Kernel launch counts are not stats keys: each kernel wrapper keeps its own
 plain integer (``launches``).
+
+Under ``cfg.remat`` the models checkpoint each encoder layer and decoder
+period (``models.common.remat``), whose backward recomputes the forward.
+The recomputation runs inside ``remat_scopes``' second context: it counts
+nothing again, so a step's count dict is the step's work counted once,
+and it replays what the first forward decided (``replayed_call``).
 """
 from __future__ import annotations
 
@@ -61,7 +67,10 @@ def _normalize(kind: str) -> str:
 
 
 def record(kind: str) -> None:
-    """Register one counted event; ``kind`` is ``<how>:<what>``."""
+    """Register one counted event; ``kind`` is ``<how>:<what>``.  Not
+    counted in a recomputation (``recomputing``)."""
+    if recomputing():
+        return
     _COUNTS[_normalize(kind)] += 1
 
 
@@ -69,6 +78,8 @@ def record_on_device(kind: str, flag: torch.Tensor) -> None:
     """Count the set elements of the boolean or 0/1 tensor ``flag`` under
     ``kind``, on ``flag``'s device and without a host sync; ``counts`` and
     ``total`` fold the sum in when they are read."""
+    if recomputing():
+        return
     key = (_normalize(kind), flag.device)
     inc = flag.to(torch.int32).sum()
     prev = _PENDING.get(key)
@@ -174,7 +185,10 @@ _LIVE: Dict[str, "collections.deque[Tuple[float, float]]"] = {}
 def record_live_tiles(key: str, out_frac: float,
                       operand_frac: float = 1.0) -> None:
     """Append one measured (out, operand) live-tile fraction pair for
-    ``key`` (bounded: the newest ``LIVE_WINDOW`` samples are kept)."""
+    ``key`` (bounded: the newest ``LIVE_WINDOW`` samples are kept).  A
+    recomputation's dispatches were sampled in the first forward."""
+    if recomputing():
+        return
     buf = _LIVE.get(key)
     if buf is None:
         buf = _LIVE[key] = collections.deque(maxlen=LIVE_WINDOW)
@@ -281,3 +295,103 @@ def layer_scope(name: Optional[str]):
 def current_layer() -> Optional[str]:
     """The innermost open ``layer_scope``, or None."""
     return _LAYERS[-1] if _LAYERS else None
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation — a checkpointed region recomputed in the backward pass
+# ---------------------------------------------------------------------------
+
+class _Region:
+    """One open pass of a checkpointed region: its first forward, which
+    keeps a tape of the decisions it took, or its recomputation, which
+    replays that tape from the start."""
+    __slots__ = ("tape", "replay", "cursor")
+
+    def __init__(self, tape: list, replay: bool):
+        self.tape, self.replay, self.cursor = tape, replay, 0
+
+
+# The open regions, outermost first.  One stack for the process, as
+# ``_TAGS``: the recomputation runs on the autograd engine's thread.
+_REGIONS: List[_Region] = []
+_RECOMPUTE_HOOK = None
+
+
+def recomputing() -> bool:
+    """Is a recomputation open?  Its events were counted in the first
+    forward: ``record``, ``record_on_device``, ``record_at_runtime`` and
+    ``record_live_tiles`` count nothing inside it.  Kernel launches and
+    ``note_kernel`` go on counting and logging: the recomputed launches
+    are work on the card."""
+    return any(r.replay for r in _REGIONS)
+
+
+def remat_scopes(restore=None):
+    """The two contexts of one checkpointed region, as
+    ``torch.utils.checkpoint``'s ``context_fn`` returns them: the first
+    forward's, which tapes each ``replayed_call``; and the
+    recomputation's, which replays the tape (so the recomputed forward
+    takes the first forward's GEMM specs, routing and hook results,
+    whatever the backward pass observed since), counts nothing, opens a
+    ``repro:remat:<seq>`` lifecycle tag (the trace audit's log and a
+    profiler trace mark the recomputed ops by it) and, inside all that,
+    enters ``restore()`` when given (the caller's state of the first
+    forward).  Both may be entered again (a second backward pass)."""
+    tape: list = []
+    return _RegionContext(tape, False), _RegionContext(tape, True, restore)
+
+
+class _RegionContext:
+    def __init__(self, tape: list, replay: bool, restore=None):
+        self.tape, self.replay, self.restore = tape, replay, restore
+        self._stack = None
+
+    def __enter__(self):
+        stack = contextlib.ExitStack()
+        if self.replay:
+            if self.restore is not None:
+                stack.enter_context(self.restore())
+            stack.enter_context(lifecycle_scope("remat"))
+        _REGIONS.append(_Region(self.tape, self.replay))
+        stack.callback(_REGIONS.pop)
+        self._stack = stack
+        return self
+
+    def __exit__(self, *exc):
+        stack, self._stack = self._stack, None
+        return stack.__exit__(*exc)
+
+
+def replayed_call(make):
+    """``make()`` outside a recomputation, taped by every open first
+    forward; in a recomputation the first forward's result, in order,
+    without calling ``make`` (a decision that reads or changes state,
+    such as an autotune resolution or a test hook)."""
+    replaying = next((r for r in _REGIONS if r.replay), None)
+    if replaying is None:
+        value = make()
+    else:
+        value = replaying.tape[replaying.cursor]
+        replaying.cursor += 1
+    for r in _REGIONS:
+        if not r.replay:
+            r.tape.append(value)
+    return value
+
+
+def set_recompute_hook(fn):
+    """Install (or, with None, remove) the recomputation hook; returns the
+    previous one.  The hook receives a checkpointed region's inputs as it
+    recomputes and returns the inputs it recomputes on (a test seam: a
+    fault planted in the recomputation only)."""
+    global _RECOMPUTE_HOOK
+    prev, _RECOMPUTE_HOOK = _RECOMPUTE_HOOK, fn
+    return prev
+
+
+def recompute_inputs(args: tuple) -> tuple:
+    """A region's inputs through the recomputation hook (unchanged outside
+    a recomputation or without a hook)."""
+    if _RECOMPUTE_HOOK is None or not recomputing():
+        return args
+    return tuple(_RECOMPUTE_HOOK(args))

@@ -17,8 +17,9 @@ the 16×16 single-pod mesh and the 2×16×16 multi-pod mesh
   * ``counted_flops`` (``"meta trace"``): the cell's step run once at its
     full shapes on meta tensors under ``MetaFlopCounter``, which counts as
     ``torch.utils.flop_counter.FlopCounterMode`` does (held equal to it in
-    the tests) — forward, backward and update for train, the forward for
-    prefill, one tick for decode.  It counts matmul-like ops only
+    the tests) — forward, backward (with the forward that ``cfg.remat``
+    recomputes in it) and update for train, the forward for prefill, one
+    tick for decode.  It counts matmul-like ops only
     (mm/bmm/addmm/conv/attention).  A train
     step with microbatches is traced at one sequence and its count scaled
     by the batch (``counted_at``).  This is also the counterpart of "it
@@ -299,7 +300,9 @@ def lower_cell(arch: str, cfg, shape: ShapeConfig, *, multi_pod: bool,
     if pure_dp:
         fsdp = False
     # the reference's defaults for ≥8B train cells: bf16 Adam moments and
-    # the model-sharded remat stash (an activation rule: recorded only)
+    # the model-sharded remat stash (the "act_stash" rule on each period's
+    # input, which cfg.remat's checkpoint keeps; no activation rule is
+    # installed here, so it is recorded only)
     if n_params > 8e9 and shape.kind == "train":
         if opt_dtype == "float32":
             opt_dtype = "bfloat16"
@@ -500,8 +503,9 @@ def main() -> None:
     ap.add_argument("--opt-dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--shard-stash", action="store_true",
-                    help="model-shard the period-boundary remat stash "
-                         "(recorded; an activation rule, none installed)")
+                    help="model-shard the period-boundary remat stash, "
+                         "each period's checkpointed input (recorded; an "
+                         "activation rule, none installed)")
     ap.add_argument("--tag", default="baseline",
                     help="label recorded per cell (perf-iteration log)")
     ap.add_argument("--pure-dp", action="store_true",

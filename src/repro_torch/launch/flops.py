@@ -17,9 +17,10 @@ Granularity and conventions (the reference's):
     fraction); embed gathers are 0 FLOPs; tied heads add 2·d·V.
   * attention score/value FLOPs are 4·B·T·S_eff·H·Dh with S_eff set by the
     schedule (rect = full S; tri = causal prefix; window = clipped).
-  * backward factor: fwd(1) + bwd(2) + remat re-fwd(1 if remat).  The port
-    runs no per-period remat, so a path measured on the card is bounded
-    with ``cfg.with_(remat=False)``.
+  * backward factor: fwd(1) + bwd(2) + remat re-fwd(1 if remat), as the
+    port runs it: ``cfg.remat`` recomputes each encoder layer and decoder
+    period in the backward (``models.common.remat``), so a path measured
+    on the card is bounded at the ``remat`` it ran.
   * HBM/collective byte models use named coefficients (ACT_RW_COEF etc.);
     they are estimates, counted in bf16 bytes whatever the path's dtype,
     held fixed so that deltas are meaningful.

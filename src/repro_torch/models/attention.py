@@ -146,8 +146,11 @@ def blockwise_attention(
     ``tri`` only the causal prefix).  Each q chunk is recomputed in the
     backward pass (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint``): otherwise every (q, kv) tile's scores stay alive,
-    ~5 GB a layer for gemma3-12b at 4,096 positions.  Returns (B, T, Hq,
-    Dv) in v's dtype.
+    ~5 GB a layer for gemma3-12b at 4,096 positions.  Under ``cfg.remat``
+    these checkpoints nest inside the period's: its recomputation runs
+    each q chunk once more keeping only its inputs, and each q chunk is
+    recomputed once for its own backward, as with ``remat=False``.
+    Returns (B, T, Hq, Dv) in v's dtype.
 
     On DTensors it runs under ``local_map`` on each rank's rows (the
     batch over the data axes), as DTensor has no strategy for the score

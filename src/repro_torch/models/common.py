@@ -159,3 +159,43 @@ def activation_fn(name: str):
         "gelu": _gelu_tanh,
         "silu": F.silu,
     }[name]
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+def remat(fn, *args):
+    """``fn(*args)`` as a checkpointed region: the reference's
+    ``jax.checkpoint(fn, prevent_cse=False)`` as
+    ``torch.utils.checkpoint`` (non-reentrant) gives it.  The forward keeps
+    only the region's inputs; the backward pass recomputes the whole
+    region once (no early stop, so the recomputed forward is the forward)
+    under ``stats.remat_scopes``, with the sharding rules and the upcast
+    dtype of the first forward restored (the recomputation may run on the
+    autograd engine's thread, where the rules, kept per thread, are not
+    installed).  Without gradients it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+    from repro_torch.kernels import stats
+    from repro_torch.sharding.context import current_rules, sharding_rules
+    rules, up = current_rules(), _UPCAST
+
+    @contextlib.contextmanager
+    def restore():
+        with sharding_rules(rules), upcast(up):
+            yield
+
+    def region(*a):
+        # checkpoints nested inside (attention's q chunks, Mamba's chunks)
+        # keep their own early stop, as without remat
+        with set_checkpoint_early_stop(True):
+            return fn(*stats.recompute_inputs(a))
+
+    scopes = stats.remat_scopes(restore)
+    with set_checkpoint_early_stop(False):
+        return checkpoint(region, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=lambda: scopes)

@@ -99,8 +99,9 @@ def _sparse_ffn(x2, w_up, w_down, *, pol: SparsityPolicy,
     → INPUT sparsity), then the fused unit."""
     with stats.layer_scope("ffn_up"):
         h_pre = sparse_matmul(x2, w_up, pol)
-    if _RELU_MASK_HOOK is not None and \
-            _RELU_MASK_HOOK(h_pre.detach()) is not None:
+    # called once a step: a recomputed forward takes the first's result
+    if _RELU_MASK_HOOK is not None and stats.replayed_call(
+            lambda: _RELU_MASK_HOOK(h_pre.detach())) is not None:
         raise ValueError("a replaced ReLU mask needs the dense FFN "
                          "(sparse_policy None)")
     with stats.layer_scope("ffn_down"):
@@ -152,7 +153,9 @@ def ffn_apply(params: Params, x: torch.Tensor, cfg: FFNConfig
         h_pre = x2 @ params["w_up"]
         mask = None
         if cfg.relu_family and _RELU_MASK_HOOK is not None:
-            mask = _RELU_MASK_HOOK(h_pre.detach())
+            # a recomputed forward takes the first forward's mask
+            mask = stats.replayed_call(
+                lambda: _RELU_MASK_HOOK(h_pre.detach()))
         if mask is None:
             h = activation_fn(cfg.activation)(h_pre)
         else:

@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import stats
 from repro_torch.sharding.context import constraint, data_dims
 from repro_torch.sharding.partition import is_placed
 
@@ -76,7 +77,11 @@ def set_routing_hook(fn):
 
 
 def _routed(name: str, t: torch.Tensor) -> torch.Tensor:
-    return t if _ROUTING_HOOK is None else _ROUTING_HOOK(name, t)
+    """``t`` through the routing hook.  A recomputed forward
+    (``cfg.remat``) takes the first forward's routing and capacity drops,
+    and calls no hook again."""
+    return stats.replayed_call(
+        lambda: t if _ROUTING_HOOK is None else _ROUTING_HOOK(name, t))
 
 
 def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,

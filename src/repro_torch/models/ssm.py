@@ -9,6 +9,10 @@ chunk.  The chunk body always runs under ``torch.utils.checkpoint`` when
 gradients are taken (the reference's ``jax.checkpoint``, whatever
 ``remat`` says): at jamba's width each (1, 256, 16,384, 16) f32 tensor is
 268 MB, and without recomputation the backward would keep every chunk's.
+Under ``cfg.remat`` these checkpoints nest inside the period's
+(``models.common.remat``): the period's recomputation runs each chunk's
+forward again keeping only its inputs, and each chunk is then recomputed
+once for its own backward, as with ``remat=False``.
 
 PyTorch has no stable associative scan: the chunk's scan follows
 ``jax.lax.associative_scan``'s recursion in eager ops (``_assoc_scan``),

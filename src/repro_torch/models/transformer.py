@@ -18,10 +18,17 @@ mLSTM/sLSTM blocks (no FFN).  Params may be f32 or bf16 (``cfg.dtype``'s
 default); norms, attention scores, the recurrences and the loss compute in
 f32 (``common.upcast_dtype``).
 
-``remat`` is not applied, to the periods or to the encoder's layers: at
-the sizes the port trains recomputing the forward would only cost time,
-and a recomputed sparse FFN would count ``encode:act`` twice (ROADMAP
-Queue C).  The Mamba chunk body is the exception (``models/ssm.py``).
+``cfg.remat`` (the configs' default) checkpoints each encoder layer and
+each decoder period's body as the reference's ``jax.checkpoint`` does
+(``common.remat``): the forward keeps each region's input, and the
+backward recomputes the region's forward, its sparse FFN's K1 encode and
+FP GEMMs included.  The dense prefix, the embedding and the chunked head
+run outside; a period's MoE aux loss comes out of its region.  The
+recomputation counts nothing again and replays the first forward's
+decisions (``kernels.stats.remat_scopes``), so a step's count dict and
+gradients are those of ``remat=False``.  The attention q-chunks and the
+Mamba chunks keep their own checkpoints, nested inside.
+
 The activations are annotated where the reference annotates them
 (``constraint``: ``act_btd``, ``act_stash``, ``head_dv``), so on DTensor
 params (``train_loop(mesh=...)``) the installed rules lay them out as
@@ -35,6 +42,7 @@ once.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -51,7 +59,7 @@ from .attention import (attn_apply, attn_decode, attn_init,
                         cross_attn_init)
 from .attention import init_cache as attn_init_cache
 from .common import (MetaGenerator, apply_rope, dense_init, dtype_of,
-                     embed_init, make_norm, upcast_dtype)
+                     embed_init, make_norm, remat, upcast_dtype)
 from .ffn import ffn_apply, ffn_params
 from .moe import moe_apply, moe_init
 from .ssm import ssm_apply, ssm_decode, ssm_init, ssm_init_cache
@@ -326,8 +334,17 @@ def encode(params: Params, frontend_embeds: torch.Tensor, cfg
     if "frontend_proj" in params:
         x = x @ params["frontend_proj"]
     for i, lp in enumerate(params["encoder"]["layers"]):
-        x, _ = block_apply(lp, x, cfg, _enc_kind(cfg, i), causal=False)
+        layer = functools.partial(_encoder_layer, cfg=cfg,
+                                  kind=_enc_kind(cfg, i))
+        # unrolled stack: without per-layer remat the encoder keeps every
+        # intermediate live through the decoder's backward
+        x = remat(layer, lp, x) if cfg.remat else layer(lp, x)
     return norm(params["encoder"]["final_norm"], x)
+
+
+def _encoder_layer(lp: Params, x: torch.Tensor, *, cfg, kind: str
+                   ) -> torch.Tensor:
+    return block_apply(lp, x, cfg, kind, causal=False)[0]
 
 
 def prepend_frontend(fe: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -361,14 +378,28 @@ def lm_hidden(params: Params, tokens: torch.Tensor, cfg,
     stacked = {f"b{pos}": _tree.tree_map(lambda t: t.unbind(0),
                                          params["layers"][f"b{pos}"])
                for pos in range(len(layout))}
+    body = functools.partial(_period_body, cfg=cfg, layout=layout)
     for i in range(_n_periods(cfg)):
+        # "act_stash" lays the period's input out BEFORE it is kept as the
+        # region's input (the reference's remat stash)
         x = constraint(x, "act_stash")
-        for pos, (kind, use_moe) in enumerate(layout):
-            x, a = block_apply(_select(stacked[f"b{pos}"], i), x, cfg, kind,
-                               use_moe, memory=memory)
-            aux = aux + a
+        lps = [_select(stacked[f"b{pos}"], i) for pos in range(len(layout))]
+        x, a = remat(body, x, lps, memory) if cfg.remat \
+            else body(x, lps, memory)
+        aux = aux + a
     _, norm = make_norm(cfg.norm)
     return norm(params["final_norm"], x), aux
+
+
+def _period_body(x: torch.Tensor, lps, memory: Optional[torch.Tensor], *,
+                 cfg, layout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder period: its blocks in order → (x, the period's MoE aux
+    loss), summed within the period as the reference's scan body does."""
+    aux = torch.zeros((), dtype=upcast_dtype(), device=x.device)
+    for lp, (kind, use_moe) in zip(lps, layout):
+        x, a = block_apply(lp, x, cfg, kind, use_moe, memory=memory)
+        aux = aux + a
+    return x, aux
 
 
 def _select(unbound, i):

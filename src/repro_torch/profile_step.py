@@ -7,7 +7,7 @@ Run on a machine with a CUDA device:
   PYTHONPATH=src python -m repro_torch.profile_step --arch smollm-360m
       [--batch 8] [--seq 128] [--n-layers N]
   PYTHONPATH=src python -m repro_torch.profile_step --arch seamless-m4t-medium
-      [--sparse-ffn IN_OUT_WR]
+      [--sparse-ffn IN_OUT_WR [--ffn-kernels]] [--remat off]
   PYTHONPATH=src python -m repro_torch.profile_step \
       --arch deepseek-v2-lite-16b --n-layers 3 --seq 512
   PYTHONPATH=src python -m repro_torch.profile_step --arch gemma3-12b \
@@ -21,7 +21,13 @@ launched from autograd's threads, as ``(no layer)``.  Its batch is
 ``data.pipeline.train_batch`` (enc-dec and frontend configs get stub
 frontend embeddings beside the tokens, as the reference lays them out);
 ``--seq`` defaults to 512 for those, 128 otherwise.  ``--n-layers`` cuts
-the decoder's depth; ``--dtype`` sets the params' (default float32).
+the decoder's depth; ``--dtype`` sets the params' (default float32);
+``--ffn-kernels`` runs the ``--sparse-ffn`` scenario's ReLU FFNs on the
+kernels instead of its masked plain path; ``--remat on|off`` overrides the
+config's ``remat``.  Under ``remat`` the summary adds the recomputed
+regions (the ``repro:remat:<seq>`` ranges the backward pass opens): their
+number, the host time inside them and the device time of the work
+launched from them.
 ``--decode`` profiles one tick of ``serving.ServeEngine`` instead, at
 ``launch/serve.py``'s defaults (4 slots, 6-token prompts, 12 tokens each),
 the tick taken once the slots are generating.
@@ -116,12 +122,54 @@ def summarize_trace(events: list) -> dict:
     for rs in ranges.values():
         for lo, hi, name in rs:
             host[name[len("layer:"):]] += (hi - lo) / 1e3
+    remat = _remat_summary(events, launches)
     return {"busy_ms": sum(r[1] for r in kernels), "kernels": kernels,
+            "remat": remat,
             "host_ms": sorted(host.items(), key=lambda r: -r[1]),
             "layers": sorted(by_layer.items(), key=lambda r: -r[1]),
             "longest": [r[1:] for r in sorted(launched,
                                               key=lambda r: -r[3])],
             "in_order": [r[1:] for r in sorted(launched)]}
+
+
+def _remat_summary(events: list, launches: dict) -> dict:
+    """The recomputed regions of a step: ``{"regions": number of
+    ``repro:remat:`` ranges, "host_ms": the time inside them, "device_ms":
+    the device time of the work launched from inside them, "runtime":
+    [(CUDA API call, host ms inside them, calls)], longest
+    first (launches, and synchronizations where the host waits for the
+    device)}``."""
+    spans = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and \
+                e["name"].startswith("repro:remat:"):
+            spans[e["tid"]].append((e["ts"], e["ts"] + e["dur"]))
+    for rs in spans.values():
+        rs.sort()
+
+    def inside(tid, ts):
+        rs = spans.get(tid, [])
+        k = bisect.bisect_right(rs, (ts, float("inf"))) - 1
+        return k >= 0 and rs[k][0] <= ts <= rs[k][1]
+
+    runtime = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.get("cat") in _LAUNCH_CATS and inside(e["tid"], e["ts"]):
+            runtime[e["name"]][0] += e.get("dur", 0) / 1e3
+            runtime[e["name"]][1] += 1
+    device_ms = 0.0
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS:
+            continue
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        if launch is not None and inside(*launch):
+            device_ms += e["dur"] / 1e3
+    return {"regions": sum(len(rs) for rs in spans.values()),
+            "host_ms": sum(hi - lo for rs in spans.values()
+                           for lo, hi in rs) / 1e3,
+            "device_ms": device_ms,
+            "runtime": sorted(((k, v[0], v[1]) for k, v in runtime.items()),
+                              key=lambda r: -r[1])}
 
 
 def _profiled(run, dev, trace=None) -> dict:
@@ -168,11 +216,14 @@ def profile_step(*, net="vgg16", policy="IN_OUT_WR",
 
 
 def profile_lm_step(*, arch="smollm-360m", batch=8, seq=None,
-                    n_layers=None, sparse_ffn=None, dtype=torch.float32,
-                    device="cuda", trace=None):
+                    n_layers=None, sparse_ffn=None, ffn_kernels=False,
+                    remat=None, dtype=torch.float32, device="cuda",
+                    trace=None):
     """Profile one LM train step (``launch/steps.make_train_step``, AdamW)
     after two warm-up steps; returns a summary dict as ``profile_step``,
-    with ``peak_gib``, the device memory peak of the three steps."""
+    with ``peak_gib``, the device memory peak of the three steps.
+    ``ffn_kernels`` runs the ``sparse_ffn`` scenario on the kernels;
+    ``remat`` (a bool) overrides the config's."""
     from repro_torch.configs import ARCHS
     from repro_torch.data.pipeline import train_batch
     from repro_torch.launch import steps
@@ -186,6 +237,8 @@ def profile_lm_step(*, arch="smollm-360m", batch=8, seq=None,
         cfg = cfg.with_(n_layers=n_layers)
     if sparse_ffn:
         cfg = cfg.with_(sparse_ffn_scenario=sparse_ffn)
+    if remat is not None:
+        cfg = cfg.with_(remat=remat)
     if seq is None:
         seq = 512 if cfg.enc_dec or cfg.frontend else 128
     ocfg = optimizer.OptConfig()
@@ -193,12 +246,18 @@ def profile_lm_step(*, arch="smollm-360m", batch=8, seq=None,
     params = transformer.lm_init(0, cfg, dtype=dtype, device=dev)
     opt = optimizer.adamw_init(params)
     step_fn = steps.make_train_step(cfg, ocfg)
-
-    for i in range(2):
-        params, opt, _ = step_fn(params, opt, train_batch(
-            cfg, 0, i, batch=batch, seq_len=seq, device=dev))
-    b = train_batch(cfg, 0, 2, batch=batch, seq_len=seq, device=dev)
-    res = _profiled(lambda: step_fn(params, opt, b), dev, trace)
+    prev = SCENARIOS.get(sparse_ffn)
+    if ffn_kernels:
+        SCENARIOS[sparse_ffn] = prev.with_(kernel_impl="pallas")
+    try:
+        for i in range(2):
+            params, opt, _ = step_fn(params, opt, train_batch(
+                cfg, 0, i, batch=batch, seq_len=seq, device=dev))
+        b = train_batch(cfg, 0, 2, batch=batch, seq_len=seq, device=dev)
+        res = _profiled(lambda: step_fn(params, opt, b), dev, trace)
+    finally:
+        if ffn_kernels:
+            SCENARIOS[sparse_ffn] = prev
     res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     return res
 
@@ -249,6 +308,10 @@ def main(argv=None) -> None:
     ap.add_argument("--sparse-ffn", default=None, choices=list(SCENARIOS),
                     help="the LM config's sparse_ffn_scenario (a ReLU FFN's "
                          "masked plain path, as in the reference)")
+    ap.add_argument("--ffn-kernels", action="store_true",
+                    help="run the --sparse-ffn scenario on the kernels")
+    ap.add_argument("--remat", default=None, choices=("on", "off"),
+                    help="the LM config's remat (default its own)")
     ap.add_argument("--net", default="vgg16", choices=list(NETWORKS))
     ap.add_argument("--policy", default="IN_OUT_WR", choices=list(SCENARIOS))
     ap.add_argument("--scan-signed-inputs", action="store_true")
@@ -265,9 +328,14 @@ def main(argv=None) -> None:
         print(f"{args.arch} decode tick ({args.dtype}): device memory "
               f"peak {res['peak_gib']:.2f} GiB")
     elif args.arch:
+        if args.ffn_kernels and not args.sparse_ffn:
+            ap.error("--ffn-kernels needs --sparse-ffn")
         res = profile_lm_step(arch=args.arch, batch=args.batch,
                               seq=args.seq, n_layers=args.n_layers,
-                              sparse_ffn=args.sparse_ffn, dtype=dtype,
+                              sparse_ffn=args.sparse_ffn,
+                              ffn_kernels=args.ffn_kernels,
+                              remat=None if args.remat is None
+                              else args.remat == "on", dtype=dtype,
                               trace=args.trace)
         print(f"{args.arch}: device memory peak {res['peak_gib']:.2f} GiB")
     else:
@@ -280,6 +348,14 @@ def main(argv=None) -> None:
           f"ms under the profiler; device "
           f"busy {res['busy_ms']:.1f} ms; idle share "
           f"{res['idle_share']:.3f}")
+    rm = res["remat"]
+    if rm["regions"]:
+        print(f"recomputation (remat): {rm['regions']} regions; host "
+              f"{rm['host_ms']:.1f} ms inside them; device "
+              f"{rm['device_ms']:.1f} ms launched from them; CUDA calls "
+              f"inside them (host ms, calls): "
+              + ", ".join(f"{n} {ms:.1f} {c}"
+                          for n, ms, c in rm["runtime"][:6]))
     print("device time by kernel (ms, calls; the 25 longest and every "
           "kernel of the port):")
     for k, (name, ms, n) in enumerate(res["kernels"]):

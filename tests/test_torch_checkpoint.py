@@ -141,7 +141,9 @@ def test_state_json_roundtrip(tmp_path):
 
 
 def test_train_resume_bit_identical(tmp_path):
-    cfg = SMOKE_ARCHS["smollm-360m"]
+    # remat=False: the loop's resume, which the recomputation leaves as it
+    # is (tests/test_torch_remat.py), without its time
+    cfg = SMOKE_ARCHS["smollm-360m"].with_(remat=False)
     tcfg = TrainConfig(total_steps=6, checkpoint_every=3, learning_rate=1e-3,
                        seed=3)
     kw = dict(batch_size=4, seq_len=16, log_every=0, device="cpu")

@@ -366,8 +366,9 @@ def test_path_row_bounds_a_measured_path():
         row = troof.path_row("smollm", cfg, shape, 150.0, dtype="float32")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    ac = tflops.analytic_cost(cfg.with_(remat=False), shape, dp_n=1,
-                              model_n=1)
+    # bounded at the remat the path ran: the config's own (True)
+    ac = tflops.analytic_cost(cfg, shape, dp_n=1, model_n=1)
+    assert row["remat"] is True
     assert row["flops"] == ac.flops_per_device
     assert row["peak_flops"] == 67e12 and row["dominant"] == "compute"
     assert row["bound_ms"] == ac.flops_per_device / 67e12 * 1e3

@@ -348,8 +348,10 @@ def _smoke_loop(steps, ckpt_dir=None, mesh_shape=None, guard=False):
     g = StepGuard() if guard else None
     tcfg = TrainConfig(total_steps=4, checkpoint_every=2,
                        learning_rate=1e-3, seed=3)
-    out = train_loop(SMOKE_ARCHS["smollm-360m"], tcfg, batch_size=4,
-                     seq_len=16, steps=steps, ckpt_dir=ckpt_dir,
+    # remat=False: the loop and its resume, which the recomputation leaves
+    # as they are (tests/test_torch_remat.py), without its time
+    out = train_loop(SMOKE_ARCHS["smollm-360m"].with_(remat=False), tcfg,
+                     batch_size=4, seq_len=16, steps=steps, ckpt_dir=ckpt_dir,
                      log_every=0, device="cpu", mesh=mesh,
                      spmd=mesh is not None, guard=g)
     verdicts = [v for _, v in g.verdicts] if g else None

@@ -134,7 +134,10 @@ def test_deep_stack_f32_gap_is_the_networks(monkeypatch):
     from repro_torch.models import transformer as ttr
 
     jcfg = J_SMOKE["xlstm-350m"].with_(n_layers=24)
-    tcfg = T_SMOKE["xlstm-350m"].with_(n_layers=24)
+    # the port's step without the recomputation: its values are the same
+    # bit for bit (tests/test_torch_remat.py), and at 24 sLSTM/mLSTM
+    # layers the recomputed forward would add a third to this test's time
+    tcfg = T_SMOKE["xlstm-350m"].with_(n_layers=24, remat=False)
     jp = jtr.lm_init(jax.random.key(0), jcfg, dtype=jnp.float32)
     tok = np.random.default_rng(0).integers(
         0, jcfg.vocab_size, (2, 129)).astype(np.int32)
