@@ -160,7 +160,18 @@ Phases (any failure makes the exit code nonzero):
      step; the first step's gradients and the final params and moments
      within REMAT_LEAF_RTOL, equal count dicts, seamless's launches up by
      exactly one forward's a step and its peak lower at remat=True, and a
-     fault planted in the recomputation only rejected.
+     fault planted in the recomputation only rejected;
+ 15. the wall-clock harness (``repro_torch.benchmarks.wallclock``; run
+     after phase 14, before phase 12's dry runs): its three documents at
+     full geometry — fenced medians and IQRs of the masked GEMM's
+     predicated (K4), compact (K2 -> K3) and dense schedules, two small
+     train steps and the scripted autotune session (equal to the same
+     session on the CPU); the fused sigma-prime + emit against the plain
+     GEMM and GEMM-then-bitmap_scan (K5); the compressed against the dense
+     all-reduce on four gloo ranks sharing the card, meshes 4 and 2x2 —
+     with the first call of each timed row held against the plain
+     versions.  A schema or coverage error fails the run; each claim of
+     the reference's checkers is printed held or missed with both medians.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout, it exits nonzero and prints no result.
@@ -1813,6 +1824,8 @@ def tables_phase(full):
     from repro_torch.benchmarks.figures import ALL_FIGURES, NETS
     from repro_torch.benchmarks.run import TABLES
 
+    from repro_torch.kernels import autotune
+
     def run():
         for name, fn in TABLES.items():
             t0 = time.perf_counter()
@@ -1828,6 +1841,7 @@ def tables_phase(full):
                 if name in ALL_FIGURES and name != "fig03_sparsity" else ""
             print(f"table {name} ({time.perf_counter() - t0:.1f} s){what}: "
                   f"{derived}", flush=True)
+        autotune.reset()      # autotune_audit leaves its session's cache
         for net in NETS:
             totals = network_totals(net, full)
             cyc = [totals[sc]["total_cycles"] for sc in SCENARIO_ORDER]
@@ -5158,6 +5172,157 @@ def remat_phase(dev, small=False, paths=REMAT_PATHS):
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the wall-clock harness (benchmarks.wallclock)
+# ---------------------------------------------------------------------------
+
+# The kernels the harness's rows launch: K4 (the predicated rows), K2 -> K3
+# (the compact rows) and K5 (the emit table's gemm_scan variant).
+WALLCLOCK_KERNELS = ("queue_builder", "compact_gemm", "predicated_gemm",
+                     "bitmap_scan")
+WALLCLOCK_COUNTERS = {"hits": 21, "misses": 3, "retunes": 6}
+
+
+@contextlib.contextmanager
+def first_calls_held(dev, wc):
+    """Inside the block the first call (a warm-up) of every ``wc.measure``
+    runs with each GEMM dispatch, K2 queue and K1 encode held against its
+    plain version (``held_against_plain``) and each K5 scan against
+    ``bitmap_scan_plain``; the other calls run untouched."""
+    import torch
+    from repro_torch.kernels import bitmap_scan as k5
+
+    def scan_held(real):
+        def scan(x, gran):
+            got = real(x, gran)
+            check(torch.equal(got, k5.bitmap_scan_plain(x, gran)),
+                  f"bitmap_scan wallclock {tuple(x.shape)} gran {gran} "
+                  f"matches its plain version")
+            return got
+        return scan
+
+    def held(real_measure):
+        def measure(call, **kw):
+            first = [True]
+
+            def once():
+                if not first:
+                    return call()
+                first.clear()
+                with held_against_plain(dev, "wallclock"), \
+                        patched(k5, "bitmap_scan", scan_held):
+                    return call()
+            return real_measure(once, **kw)
+        return measure
+
+    with patched(wc, "measure", held):
+        yield
+
+
+def wallclock_claims(docs, wc):
+    """(statement, held) for each claim the checkers hold on full-geometry
+    documents: fused < gemm_scan per emit cell; bitmap < dense at each
+    mesh's lowest live fraction; bitmap <= COLLECTIVE_FALLBACK_SLACK x
+    dense past the cutoff."""
+    out = []
+    for doc in docs:
+        cells = {}
+        for r in doc["rows"]:
+            if r["table"] == "emit":
+                cells.setdefault((r["workload"], r["schedule"]), {})[
+                    r["variant"]] = r["us_median"]
+            elif r["table"] == "collective":
+                cells.setdefault((r["mesh"], r["live_frac"]), {})[
+                    r["variant"]] = (r["us_median"], r["cutoff"])
+        if doc["bench"] == "BENCH_8":
+            for (w, s), v in sorted(cells.items()):
+                out.append((f"fused {v['fused']} us < gemm_scan "
+                            f"{v['gemm_scan']} us on {w}/{s}",
+                            v["fused"] < v["gemm_scan"]))
+        elif doc["bench"] == "BENCH_9":
+            lowest = {}
+            for mesh, live in cells:
+                lowest[mesh] = min(live, lowest.get(mesh, live))
+            for (mesh, live), v in sorted(cells.items()):
+                (bm, cutoff), (dn, _) = v["bitmap"], v["dense_psum"]
+                if live == lowest[mesh]:
+                    out.append((f"bitmap {bm} us < dense_psum {dn} us on "
+                                f"{mesh}@{live}", bm < dn))
+                if live > cutoff:
+                    slack = wc.COLLECTIVE_FALLBACK_SLACK
+                    out.append((f"bitmap {bm} us <= {slack} x dense_psum "
+                                f"{dn} us on {mesh}@{live} (past the "
+                                f"cutoff {cutoff})", bm <= dn * slack))
+    return out
+
+
+def wallclock_cell(r):
+    """A row's table and cell, as phase 15 prints it."""
+    if r["table"] == "collective":
+        return (f"collective mesh {r['mesh']} live {r['live_frac']} "
+                f"{r['variant']} {r['m']}x{r['n']} block {r['block']}")
+    if r["table"] == "train_step":
+        return (f"train_step {r['workload']} {r['schedule']} batch "
+                f"{r['batch']}")
+    variant = f" {r['variant']}" if r["table"] == "emit" else ""
+    return (f"{r['table']} {r['workload']} {r['schedule']}{variant} "
+            f"{r['m']}x{r['k']}x{r['n']} block {r['block']}")
+
+
+def wallclock_phase(dev):
+    """Phase 15: ``benchmarks.wallclock``'s three documents at full geometry
+    on the card (the GEMM schedules, two train steps and the autotune
+    session; the fused emit against GEMM-then-scan; the compressed against
+    the dense all-reduce on COLLECTIVE_RANKS gloo ranks sharing the card),
+    the first call of each timed row held against the plain versions.
+    Every schema or coverage error fails the run; each claim is printed
+    held or missed.  Returns the path's launches."""
+    from repro_torch.benchmarks import wallclock as wc
+
+    t0 = time.perf_counter()
+
+    def run():
+        with first_calls_held(dev, wc):
+            docs = [wc.run_bench(device=dev), wc.run_emit_bench(device=dev)]
+        return docs + [wc.run_collective_bench(device=dev)]
+
+    docs, launches = launches_of(run)
+    claim_errors = 0
+    for doc in docs:
+        for r in doc["rows"]:
+            print(f"wallclock {doc['bench']} {wallclock_cell(r)}: median "
+                  f"{r['us_median']} us, IQR {r['us_iqr']} us ({r['reps']} "
+                  f"fenced calls after {r['warmup']})", flush=True)
+        errs = wc._checker_for(doc)(doc)
+        schema = [e for e in errs if not e.startswith("claim:")]
+        for e in schema:
+            print(f"  SCHEMA: {e}", flush=True)
+        check(not schema and doc["geometry"] == "full",
+              f"wallclock {doc['bench']} (full geometry, "
+              f"{len(doc['rows'])} rows): schema and coverage clean")
+        claim_errors += len(errs) - len(schema)
+    claims = wallclock_claims(docs, wc)
+    for statement, held in claims:
+        print(f"claim {'held' if held else 'missed'}: {statement}",
+              flush=True)
+    check(sum(not h for _, h in claims) == claim_errors,
+          "wallclock: the claims missed are the checkers' claim: errors")
+
+    at = docs[0]["autotune"]
+    sel, log, counters = wc.autotune_session(device="cpu")
+    print(f"wallclock autotune on {dev}: counters {at['counters']}, "
+          f"{len(at['log'])} decisions, schedules by step "
+          f"{[s['schedule'] for s in at['selections']]}", flush=True)
+    check(at["counters"] == WALLCLOCK_COUNTERS and at["selections"] == sel
+          and at["log"] == log,
+          f"wallclock autotune session on {dev} equals the CPU's "
+          f"(selections, {len(log)} log rows, counters {counters})")
+    check_path_kernels("wallclock", launches, WALLCLOCK_KERNELS)
+    print(f"phase 15 (wall-clock harness): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 12: the dry run, the analytic cost model and the roofline
 # ---------------------------------------------------------------------------
 
@@ -5364,7 +5529,7 @@ def main():
 
 
 def run_phases(torch, dev, runs):
-    """Phases 1-12 on ``dev``; the dry runs it starts go into ``runs``.
+    """Phases 1-15 on ``dev``; the dry runs it starts go into ``runs``.
     Returns the exit code."""
     from repro_torch.kernels import _build
     smi = subprocess.run(
@@ -5393,6 +5558,7 @@ def run_phases(torch, dev, runs):
     by_path.update(analysis_phase(dev))
     by_path.update(tp_phase(dev))
     by_path.update(remat_phase(dev))
+    by_path["wallclock"] = wallclock_phase(dev)
     runs += start_dryruns()
     by_path["dryrun"] = cost_phase(dev, runs)
 

@@ -1,8 +1,9 @@
-"""Kernel audits — the port of the reference's ``benchmarks/kernel_audit.py``
-tables that need no autotuner: block-skip capture rate on real traces,
+"""Kernel audits — the port of the reference's
+``benchmarks/kernel_audit.py``: block-skip capture rate on real traces,
 queue-construction cost, the bitmap-op budget of a training step, the
-launch-shape table, the depthwise gate and the contract audit (the rows of
-``python -m repro_torch.analysis``).
+launch-shape table, the depthwise gate, the contract audit (the rows of
+``python -m repro_torch.analysis``) and the autotuner's decision log
+(``benchmarks.wallclock``'s session).
 
 Every table takes the ``Capture`` the run was given and computes on its
 device: on a CUDA device the GEMMs, encoders and queue builders run
@@ -502,3 +503,43 @@ def contract_audit(cap: Capture = Capture()) -> Tuple[List[dict], str]:
     assert not all_violations, \
         [f"{v.checker}:{v.code}@{v.where}" for v in all_violations]
     return rows, f"checkers=3 rows={len(rows)} violations=0"
+
+
+def autotune_audit(cap: Capture = Capture()) -> Tuple[List[dict], str]:
+    """The autotuner's decision log as a table: ``benchmarks.wallclock``'s
+    scripted eager session on ``cap.device`` (the capture's geometry is
+    not used) against a fresh cache, one row per resolve event (default /
+    measured / retune / hit) with the live-tile fractions and sample
+    count it was decided from.  Asserts the session's arc: compact under
+    sparse output tiles, a drift retune chain ending dense under all-live
+    tiles, and two dims-keyed workloads holding DIFFERENT schedules at
+    once (the per-(spec, shape) selection)."""
+    from .wallclock import autotune_session
+
+    selections, log, counters = autotune_session(device=cap.device)
+    by_phase = {}
+    for s in selections:
+        by_phase.setdefault(s["phase"], []).append(s["schedule"])
+
+    assert by_phase["drift:sparse"][-1] == "compact", by_phase
+    assert by_phase["drift:dense"][-1] == "dense", by_phase
+    assert by_phase["shape:A"][-1] == "compact", by_phase
+    assert by_phase["shape:B"][-1] == "dense", by_phase
+    assert counters["retunes"] >= 1 and counters["hits"] >= 1, counters
+
+    # traceability: every measured/retune decision cites >= min_samples
+    # measured samples and a concrete live fraction ("default" rows are
+    # the static fallback; "hit" rows replay a prior decision, its
+    # fractions included); every log row carries the full field set.
+    for r in log:
+        assert set(r) == {"seq", "event", "key", "shape", "groups",
+                          "schedule", "block", "live_frac", "operand_frac",
+                          "samples"}, sorted(r)
+        if r["event"] in ("measured", "retune"):
+            assert r["live_frac"] is not None and r["samples"] >= 3, r
+
+    schedules = sorted({r["schedule"] for r in log})
+    return log, (
+        f"events={len(log)} schedules={'/'.join(schedules)} "
+        f"hits={counters['hits']} misses={counters['misses']} "
+        f"retunes={counters['retunes']} traceable=True")

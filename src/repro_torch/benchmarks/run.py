@@ -29,8 +29,9 @@ from repro_torch.device import resolve_device
 
 from .common import GEOMETRIES
 from .figures import ALL_FIGURES
-from .kernel_audit import (bitmap_op_audit, contract_audit, depthwise_audit,
-                           kernel_audit, launch_shape_audit, queue_cost_audit)
+from .kernel_audit import (autotune_audit, bitmap_op_audit, contract_audit,
+                           depthwise_audit, kernel_audit, launch_shape_audit,
+                           queue_cost_audit)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
@@ -46,6 +47,7 @@ TABLES.update({
     "launch_shape_audit": launch_shape_audit,
     "depthwise_audit": depthwise_audit,
     "contract_audit": contract_audit,
+    "autotune_audit": autotune_audit,
 })
 
 
