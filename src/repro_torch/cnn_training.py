@@ -68,7 +68,9 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
     ``params`` (updated in place) defaults to ``model.init(seed)``.  Each entry of ``steps`` holds the step's
     ``loss``, wall ``seconds`` (ended by a device synchronize), and the
     ``counts``/``launches`` it added to ``kernels.stats`` and the kernel
-    launch counters.  With ``keep_first_grads`` the first step's gradients
+    launch counters, and ``elided``: the counted keys whose dispatch ran
+    nothing (``stats.elided``; the first conv's dX, as the image requires
+    no gradient).  With ``keep_first_grads`` the first step's gradients
     are returned too.  With ``relu_live`` each entry also holds
     ``relu_live``: per conv layer, the fraction of its ReLU outputs that
     are positive at the step's weights and batch, read by a dense forward
@@ -92,7 +94,7 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
                                   image_size=image_size,
                                   num_classes=num_classes, device=dev)
         live = _relu_live(model, params, img) if relu_live else None
-        c0, l0 = stats.counts(), launch_counts()
+        c0, e0, l0 = stats.counts(), stats.elided(), launch_counts()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -110,6 +112,7 @@ def train_steps(*, net: str = "vgg16", steps: int = 3, image_size: int = 224,
             first_grads = dict(zip(leaves, grads))
         records.append({"loss": loss_v, "seconds": seconds,
                         "counts": _delta(stats.counts(), c0),
+                        "elided": _delta(stats.elided(), e0),
                         "launches": _delta(launch_counts(), l0)})
         if live is not None:
             records[-1]["relu_live"] = live

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import stats
 from .policy import SparsityPolicy
-from .sparse_linear import _mm, _needs_act_bitmap, _needs_grad_bitmap
+from .sparse_linear import (_mm, _mm_elided, _needs_act_bitmap,
+                            _needs_grad_bitmap)
 from .sparse_tensor import (
     SparseTensor,
     coarsen_bitmap,
@@ -260,17 +261,11 @@ class _ConvEngine(torch.autograd.Function):
         x_in, w = ctx.saved_tensors
         st = ctx.st
         stride, padding, policy, fused_relu, groups = ctx.cfg
+        want_dx, want_dw = ctx.needs_input_grad[:2]
         n, h, wd, c = x_in.shape
         r, s, _, m = w.shape
         u, v = dy.shape[1], dy.shape[2]
         bm, bk, bn = policy.block
-        if fused_relu:
-            relu_mask = x_in > 0
-            x = torch.where(relu_mask, x_in, torch.zeros((), dtype=x_in.dtype,
-                                                         device=x_in.device))
-        else:
-            relu_mask = None
-            x = x_in
         out_dtype = x_in.dtype
         dy32 = dy.to(torch.float32)
         st_dy = _grad_sparse_tensor(dy, policy, m, groups)
@@ -278,48 +273,46 @@ class _ConvEngine(torch.autograd.Function):
         cg, mg = c // groups, m // groups
         gc = st.gran[1] if st.gran else 1
         gcg = st_dy.gran[1] if st_dy.gran else 1
-
-        # ---- dX: full correlation of the dilated dy with the flipped w;
-        # for the fused unit the σ' Hadamard rides the kernel epilogue ----
         plh = _pad_amounts(h, r, stride, padding)
         plw = _pad_amounts(wd, s, stride, padding)
-        dyd = _dilate_hw(dy32, stride)
-        hd, wdd = dyd.shape[1], dyd.shape[2]
+        pad4 = (plh[0], plh[1], plw[0], plw[1])
+
+        # ---- dX: full correlation of the dilated dy with the flipped w;
+        # for the fused unit the σ' Hadamard rides the kernel epilogue.
+        # Nothing of it is built when autograd will not read dx (the
+        # image's gradient): the dispatch is only counted ----
+        hd, wdd = (u - 1) * stride + 1, (v - 1) * stride + 1
         pg_h_lo = r - 1 - plh[0]
         pg_h_hi = h - (hd + pg_h_lo - r + 1)
         pg_w_lo = s - 1 - plw[0]
         pg_w_hi = wd - (wdd + pg_w_lo - s + 1)
         gpad4 = (pg_h_lo, pg_h_hi, pg_w_lo, pg_w_hi)
-        gm2 = _im2col(dyd, r, s, 1, gpad4).reshape(n * h * wd, r * s * m)
         use_out = fused_relu and policy.use_output_sparsity \
             and st.bitmap is not None
-        gpb2 = None
-        if st_dy.bitmap is not None:
-            with stats.lifecycle_scope("derive", "grad_patches"):
-                gfb4 = st_dy.bitmap.reshape(n, u, v, m // gcg)
-                gpb = _im2col(_dilate_hw(gfb4, stride), r, s, 1, gpad4)
-                gpb2 = gpb.reshape(n * h * wd, -1)
-        mask2d = relu_mask.reshape(n * h * wd, c).to(torch.float32) \
-            if fused_relu else None
         # This dX GEMM produces the layer below's dy: its epilogue emits
         # that dy's fine bitmap and registers it against the returned dx.
         emit_gc = conv_channel_granularity(c, policy.block, groups) \
             if _needs_grad_bitmap(policy) else None
         emit = None if emit_gc is None else (1, emit_gc)
-        if groups == 1:
-            wt = torch.flip(w, dims=(0, 1)).permute(0, 1, 3, 2) \
-                .reshape(r * s * m, c).to(torch.float32)
-            out_mask = st.mask_for((bm, bn)) if use_out else None
-            g_mask = None if gpb2 is None \
-                else coarsen_bitmap(gpb2, (1, gcg), (bm, bk))
-            res_dx = _mm(gm2, wt, out_mask, g_mask, None, policy, out_dtype,
-                         epilogue=mask2d, emit_gran=emit)
-            dx2, dx_bits = res_dx if emit is not None else (res_dx, None)
-        else:
-            spec = policy.gemm_spec(groups=groups,
-                                    dims=(n * h * wd, r * s * mg, cg),
-                                    grans=(1, gcg, gc))
-            blk = spec.block
+        dx_dims = (n * h * wd, r * s * mg, cg)
+        dx_spec = None if groups == 1 else policy.gemm_spec(
+            groups=groups, dims=dx_dims, grans=(1, gcg, gc))
+
+        def dx_masks():
+            """(out, a) masks of the dX GEMM: σ′'s footprint and the
+            gradient patches' bitmap."""
+            gpb2 = None
+            if st_dy.bitmap is not None:
+                with stats.lifecycle_scope("derive", "grad_patches"):
+                    gfb4 = st_dy.bitmap.reshape(n, u, v, m // gcg)
+                    gpb = _im2col(_dilate_hw(gfb4, stride), r, s, 1, gpad4)
+                    gpb2 = gpb.reshape(n * h * wd, -1)
+            if groups == 1:
+                out_mask = st.mask_for((bm, bn)) if use_out else None
+                g_mask = None if gpb2 is None \
+                    else coarsen_bitmap(gpb2, (1, gcg), (bm, bk))
+                return out_mask, g_mask, None
+            blk = dx_spec.block
             out_mask = None
             if use_out:
                 out_mask = coarsen_bitmap(_group_cols(st.bitmap, groups),
@@ -329,40 +322,58 @@ class _ConvEngine(torch.autograd.Function):
                     and r * s * mg >= policy.grouped_sparsity_min_k:
                 g_mask = coarsen_bitmap(_group_patches(gpb2, r * s, groups),
                                         (1, gcg), (blk[0], blk[1]))
-            epi = None if mask2d is None else _group_cols(mask2d, groups)
-            res_dx = _mm(_group_patches(gm2, r * s, groups),
-                         _group_weights_bwd(w, groups).to(torch.float32),
-                         out_mask, g_mask, None, policy, out_dtype,
-                         epilogue=epi, spec=spec, emit_gran=emit)
-            dxg, dxg_bits = res_dx if emit is not None else (res_dx, None)
-            dx2 = _ungroup_cols(dxg)
-            # Per-group bit columns regroup to the full channel axis the
-            # same way the data does (cells nest inside groups).
-            dx_bits = None if dxg_bits is None else _ungroup_cols(dxg_bits)
-        dx = dx2.reshape(n, h, wd, c)
-        if emit is not None:
-            register_grad_bitmap(dx, dx_bits, emit)
+            return out_mask, g_mask, None
+
+        dx = None
+        if not want_dx:
+            _mm_elided(dx_dims, dx_masks, policy, out_dtype,
+                       fused_mult=fused_relu, spec=dx_spec, emit_gran=emit)
+        else:
+            gm2 = _im2col(_dilate_hw(dy32, stride), r, s, 1, gpad4) \
+                .reshape(n * h * wd, r * s * m)
+            out_mask, g_mask, _ = dx_masks()
+            mask2d = (x_in > 0).reshape(n * h * wd, c).to(torch.float32) \
+                if fused_relu else None
+            if groups == 1:
+                wt = torch.flip(w, dims=(0, 1)).permute(0, 1, 3, 2) \
+                    .reshape(r * s * m, c).to(torch.float32)
+                res_dx = _mm(gm2, wt, out_mask, g_mask, None, policy,
+                             out_dtype, epilogue=mask2d, emit_gran=emit)
+                dx2, dx_bits = res_dx if emit is not None else (res_dx, None)
+            else:
+                epi = None if mask2d is None else _group_cols(mask2d, groups)
+                res_dx = _mm(_group_patches(gm2, r * s, groups),
+                             _group_weights_bwd(w, groups).to(torch.float32),
+                             out_mask, g_mask, None, policy, out_dtype,
+                             epilogue=epi, spec=dx_spec, emit_gran=emit)
+                dxg, dxg_bits = res_dx if emit is not None \
+                    else (res_dx, None)
+                dx2 = _ungroup_cols(dxg)
+                # Per-group bit columns regroup to the full channel axis
+                # the same way the data does (cells nest inside groups).
+                dx_bits = None if dxg_bits is None \
+                    else _ungroup_cols(dxg_bits)
+            dx = dx2.reshape(n, h, wd, c)
+            if emit is not None:
+                register_grad_bitmap(dx, dx_bits, emit)
 
         # ---- dW = patches(x)ᵀ @ dy — WG stage, input sparsity both sides;
         # the kernel reads patchesᵀ through its strides ----
-        pad4 = (plh[0], plh[1], plw[0], plw[1])
-        pm = _im2col(x, r, s, stride, pad4).reshape(t, r * s * c) \
-            .to(torch.float32)
-        dym = dy32.reshape(t, m)
         want_pt_mask = _needs_grad_bitmap(policy) and st.bitmap is not None
-        if groups == 1:
-            pt_mask = None
-            if want_pt_mask:
-                pt_mask = _patch_bitmap(st, (n, h, wd, c), r, s, stride,
-                                        pad4).t_mask_for((bm, bk))
-            dym_mask = st_dy.mask_for((bk, bn))
-            dw = _mm(pm.t(), dym, None, pt_mask, dym_mask, policy,
-                     torch.float32)
-            dw = dw.reshape(r, s, c, m)
-        else:
-            spec = policy.gemm_spec(groups=groups, dims=(r * s * cg, t, mg),
-                                    grans=(gc, 1, gcg))
-            blk = spec.block
+        dw_dims = (r * s * cg, t, mg)
+        dw_spec = None if groups == 1 else policy.gemm_spec(
+            groups=groups, dims=dw_dims, grans=(gc, 1, gcg))
+
+        def dw_masks():
+            """(a, b) masks of the WG GEMM: the patches' bitmap, transposed,
+            and dy's."""
+            if groups == 1:
+                pt_mask = None
+                if want_pt_mask:
+                    pt_mask = _patch_bitmap(st, (n, h, wd, c), r, s, stride,
+                                            pad4).t_mask_for((bm, bk))
+                return None, pt_mask, st_dy.mask_for((bk, bn))
+            blk = dw_spec.block
             pt_mask = None
             if want_pt_mask:
                 pb = _patch_bitmap(st, (n, h, wd, c), r, s, stride, pad4)
@@ -373,9 +384,27 @@ class _ConvEngine(torch.autograd.Function):
             if st_dy.bitmap is not None:
                 dym_mask = coarsen_bitmap(_group_cols(st_dy.bitmap, groups),
                                           (1, gcg), (blk[1], blk[2]))
+            return None, pt_mask, dym_mask
+
+        if not want_dw:
+            _mm_elided(dw_dims, dw_masks, policy, torch.float32,
+                       spec=dw_spec)
+            return dx, None, None, None, None, None, None
+        x = torch.where(x_in > 0, x_in, torch.zeros(
+            (), dtype=x_in.dtype, device=x_in.device)) if fused_relu \
+            else x_in
+        pm = _im2col(x, r, s, stride, pad4).reshape(t, r * s * c) \
+            .to(torch.float32)
+        dym = dy32.reshape(t, m)
+        _, pt_mask, dym_mask = dw_masks()
+        if groups == 1:
+            dw = _mm(pm.t(), dym, None, pt_mask, dym_mask, policy,
+                     torch.float32)
+            dw = dw.reshape(r, s, c, m)
+        else:
             dwg = _mm(_group_patches(pm, r * s, groups).transpose(1, 2),
                       _group_cols(dym, groups), None, pt_mask, dym_mask,
-                      policy, torch.float32, spec=spec)
+                      policy, torch.float32, spec=dw_spec)
             # (G, R·S·C//G, M//G) -> (R, S, C//G, M), group-major outputs
             dw = dwg.transpose(0, 1).reshape(r, s, cg, m)
         return dx, dw.to(w.dtype), None, None, None, None, None

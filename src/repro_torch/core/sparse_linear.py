@@ -35,6 +35,31 @@ from .sparse_tensor import (
 )
 
 
+def _final_spec(spec: GemmSpec, policy: SparsityPolicy, out_dtype,
+                fused_mult: bool, emit_gran: Optional[Tuple[int, int]]):
+    """The spec ``_mm`` dispatches, from the resolved one: ``(spec,
+    separate, dropped_emit)``.  ``separate`` is the ablation
+    (``policy.fuse_epilogue=False`` on a kernel schedule): the GEMM runs
+    bare in float32 and the multiplier is applied after it, its bits
+    dropped.  ``dropped_emit``: the granularity does not divide the tile,
+    so no bitmap is emitted."""
+    if fused_mult and spec.schedule != "dense" \
+            and not policy.fuse_epilogue:
+        return spec.with_(epilogue=(), emit_gran=None,
+                          out_dtype=torch.float32), True, False
+    dropped_emit = emit_gran is not None and bool(
+        spec.block[0] % emit_gran[0] or spec.block[2] % emit_gran[1])
+    if dropped_emit:
+        emit_gran = None
+    stages = []
+    if fused_mult:
+        stages.append("sigma_prime")
+    if emit_gran is not None:
+        stages.append("bitmap_emit")
+    return spec.with_(epilogue=tuple(stages), emit_gran=emit_gran,
+                      out_dtype=out_dtype), False, dropped_emit
+
+
 def _mm(a, b, out_mask, a_mask, b_mask, policy: SparsityPolicy, out_dtype,
         epilogue: Optional[torch.Tensor] = None,
         spec: Optional[GemmSpec] = None,
@@ -53,30 +78,30 @@ def _mm(a, b, out_mask, a_mask, b_mask, policy: SparsityPolicy, out_dtype,
     if spec is None:
         spec = policy.gemm_spec(groups=a.shape[0] if a.dim() == 3 else 1)
     masks = GemmMasks(out_mask, a_mask, b_mask)
-    if epilogue is not None and spec.schedule != "dense" \
-            and not policy.fuse_epilogue:
-        out = kops.sparse_gemm(a, b, masks,
-                               spec.with_(epilogue=(), emit_gran=None,
-                                          out_dtype=torch.float32))
+    spec, separate, dropped_emit = _final_spec(
+        spec, policy, out_dtype, epilogue is not None, emit_gran)
+    if separate:
+        out = kops.sparse_gemm(a, b, masks, spec)
         out = (out * epilogue.to(torch.float32)).to(out_dtype)
         return (out, None) if emit_gran is not None else out
-    if emit_gran is not None and (spec.block[0] % emit_gran[0]
-                                  or spec.block[2] % emit_gran[1]):
-        emit_gran = None
-        dropped_emit = True
-    else:
-        dropped_emit = False
-    stages = []
-    if epilogue is not None:
-        stages.append("sigma_prime")
-    if emit_gran is not None:
-        stages.append("bitmap_emit")
-    spec = spec.with_(epilogue=tuple(stages), emit_gran=emit_gran,
-                      out_dtype=out_dtype)
     res = kops.sparse_gemm(a, b, masks, spec, epilogue_mult=epilogue)
     if dropped_emit:
         return res, None
     return res
+
+
+def _mm_elided(dims: Tuple[int, int, int], masks, policy: SparsityPolicy,
+               out_dtype, fused_mult: bool = False,
+               spec: Optional[GemmSpec] = None,
+               emit_gran: Optional[Tuple[int, int]] = None) -> None:
+    """The ``_mm`` whose result autograd will not read: the spec resolved
+    and counted as ``_mm`` would dispatch it, nothing built or launched
+    (``kernels.ops.elide_gemm``).  ``masks`` is a callable giving the
+    (out, a, b) masks, called only when the autotuner reads them."""
+    if spec is None:
+        spec = policy.gemm_spec()
+    spec, _, _ = _final_spec(spec, policy, out_dtype, fused_mult, emit_gran)
+    kops.elide_gemm(spec, dims, masks)
 
 
 def _needs_act_bitmap(policy: SparsityPolicy) -> bool:
@@ -177,38 +202,50 @@ class _ActMatmul(torch.autograd.Function):
     def _backward(ctx, dy):
         x_pre, w = ctx.saved_tensors
         st, policy, act = ctx.st, ctx.policy, ctx.act
-        mult = _act_grad_multiplier(x_pre, act)
-        x = _act(x_pre, act)
+        want_dx, want_dw = ctx.needs_input_grad[:2]
         bm, bk, bn = policy.block
         dy32 = dy.to(torch.float32)
         st_dy = _grad_sparse_tensor_linear(dy, policy)
+        t, (k, n) = x_pre.shape[0], w.shape
 
         # dx_pre = (dy @ Wᵀ) ⊙ σ'(x_pre); the out_mask is the forward
         # bitmap re-tiled, and this GEMM emits the next layer's dy bitmap.
-        out_mask = st.mask_for((bm, bn)) if policy.use_output_sparsity \
-            else None
-        dy_mask = st_dy.mask_for((bm, bk))
+        def dx_masks():
+            return (st.mask_for((bm, bn)) if policy.use_output_sparsity
+                    else None, st_dy.mask_for((bm, bk)), None)
+
         emit = linear_grad_granularity(policy.block) \
             if _needs_grad_bitmap(policy) else None
-        res = _mm(dy32, w.to(torch.float32).t(), out_mask, dy_mask, None,
-                  policy, x_pre.dtype, epilogue=mult, emit_gran=emit)
-        if emit is not None:
-            dx_pre, dx_bits = res
-            register_grad_bitmap(dx_pre, dx_bits, emit)
+        dx_pre = None
+        if want_dx:
+            res = _mm(dy32, w.to(torch.float32).t(), *dx_masks(), policy,
+                      x_pre.dtype, epilogue=_act_grad_multiplier(x_pre, act),
+                      emit_gran=emit)
+            if emit is not None:
+                dx_pre, dx_bits = res
+                register_grad_bitmap(dx_pre, dx_bits, emit)
+            else:
+                dx_pre = res
         else:
-            dx_pre = res
+            _mm_elided((t, n, k), dx_masks, policy, x_pre.dtype,
+                       fused_mult=True, emit_gran=emit)
 
         # dW = xᵀ @ dy; Xᵀ's mask is the same forward bitmap, transposed.
-        xt = x.to(torch.float32).t()
-        xt_mask = st.t_mask_for((bm, bk)) if _needs_grad_bitmap(policy) \
-            else None
-        dyb_mask = st_dy.mask_for((bk, bn))
+        def dw_masks():
+            return (None, st.t_mask_for((bm, bk))
+                    if _needs_grad_bitmap(policy) else None,
+                    st_dy.mask_for((bk, bn)))
+
+        if not want_dw:
+            _mm_elided((k, t, n), dw_masks, policy, torch.float32)
+            return dx_pre, None, None, None
+        _, xt_mask, dyb_mask = dw_masks()
+        xt = _act(x_pre, act).to(torch.float32).t()
         dw = _mm(xt, dy32, None, xt_mask, dyb_mask, policy, torch.float32)
         dw = dw.to(w.dtype)
         register_grad_bitmap(
-            dw,
-            _wg_bitmap(xt_mask, dyb_mask, -(-w.shape[0] // bm),
-                       -(-x_pre.shape[0] // bk), -(-w.shape[1] // bn)),
+            dw, _wg_bitmap(xt_mask, dyb_mask, -(-k // bm), -(-t // bk),
+                           -(-n // bn)),
             (bm, bn))
         return dx_pre, dw, None, None
 
@@ -262,28 +299,43 @@ class _Matmul(torch.autograd.Function):
     def _backward(ctx, dy):
         x, w = ctx.saved_tensors
         st, policy = ctx.st, ctx.policy
+        want_dx, want_dw = ctx.needs_input_grad[:2]
         bm, bk, bn = policy.block
         dy32 = dy.to(torch.float32)
         st_dy = _grad_sparse_tensor_linear(dy, policy)
+        t, (k, n) = x.shape[0], w.shape
+
+        def dx_masks():
+            return None, st_dy.mask_for((bm, bk)), None
+
         emit = linear_grad_granularity(policy.block) \
             if _needs_grad_bitmap(policy) else None
-        res_dx = _mm(dy32, w.to(torch.float32).t(), None,
-                     st_dy.mask_for((bm, bk)), None, policy, x.dtype,
-                     emit_gran=emit)
-        if emit is not None:
-            dx, dx_bits = res_dx
-            register_grad_bitmap(dx, dx_bits, emit)
+        dx = None
+        if want_dx:
+            res_dx = _mm(dy32, w.to(torch.float32).t(), *dx_masks(), policy,
+                         x.dtype, emit_gran=emit)
+            if emit is not None:
+                dx, dx_bits = res_dx
+                register_grad_bitmap(dx, dx_bits, emit)
+            else:
+                dx = res_dx
         else:
-            dx = res_dx
+            _mm_elided((t, n, k), dx_masks, policy, x.dtype, emit_gran=emit)
+
+        def dw_masks():
+            return (None, st.t_mask_for((bm, bk))
+                    if _needs_grad_bitmap(policy) else None,
+                    st_dy.mask_for((bk, bn)))
+
+        if not want_dw:
+            _mm_elided((k, t, n), dw_masks, policy, w.dtype)
+            return dx, None, None
+        _, xt_mask, dyb_mask = dw_masks()
         xt = x.to(torch.float32).t()
-        xt_mask = st.t_mask_for((bm, bk)) if _needs_grad_bitmap(policy) \
-            else None
-        dyb_mask = st_dy.mask_for((bk, bn))
         dw = _mm(xt, dy32, None, xt_mask, dyb_mask, policy, w.dtype)
         register_grad_bitmap(
-            dw,
-            _wg_bitmap(xt_mask, dyb_mask, -(-w.shape[0] // bm),
-                       -(-x.shape[0] // bk), -(-w.shape[1] // bn)),
+            dw, _wg_bitmap(xt_mask, dyb_mask, -(-k // bm), -(-t // bk),
+                           -(-n // bn)),
             (bm, bn))
         return dx, dw, None
 

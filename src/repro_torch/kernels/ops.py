@@ -32,7 +32,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -287,6 +288,28 @@ def _refuse_placed(op: str, *tensors) -> None:
                         f"each rank's local block (local_map)")
 
 
+def elide_gemm(spec: GemmSpec, dims: Tuple[int, int, int],
+               masks: Optional[Callable[[], MasksLike]] = None) -> None:
+    """Count one dispatch whose result autograd will not read, and run
+    nothing.  The reference differentiates by tracing: its trace records
+    such a dispatch (the image's gradient) and XLA then drops it.  This
+    records the keys ``sparse_gemm`` would — ``spec.stats_key``,
+    ``emit:grad`` and, on the compact schedule, ``queue:<builder>`` — each
+    also under ``stats.elided``, builds no operand and launches nothing.
+    ``dims`` are the per-group (M, K, N).  Where the autotuner resolved
+    ``spec`` it reads the dispatch's live-tile fractions, as it would in
+    an eager reference step: then, and only then, ``masks()`` builds the
+    masks for them."""
+    spec = stats.replayed_call(lambda: _tamper("gemm:spec", spec))
+    stats.record_elided(spec.stats_key)
+    if spec.emits_bitmap:
+        stats.record_elided("emit:grad")
+    if spec.schedule == "compact":
+        stats.record_elided(f"queue:{spec.queue_builder}")
+    if masks is not None and autotune.tracked_key(spec, dims) is not None:
+        _observe_dims(spec, dims, _as_masks(masks()))
+
+
 def _observe_live_tiles(spec: GemmSpec, a3, b3, masks: GemmMasks) -> None:
     """Measured live-tile telemetry for the autotuner: the fraction of live
     OUTPUT tiles (1.0 without an out mask) and the min live fraction across
@@ -298,10 +321,14 @@ def _observe_live_tiles(spec: GemmSpec, a3, b3, masks: GemmMasks) -> None:
     observed there, so a step without the autotuner does no extra work.
     A recomputed forward's dispatches (``cfg.remat``) were observed in the
     first forward and are not observed again."""
+    _observe_dims(spec, (a3.shape[1], a3.shape[2], b3.shape[2]), masks)
+
+
+def _observe_dims(spec: GemmSpec, dims: Tuple[int, int, int],
+                  masks: GemmMasks) -> None:
     present = [m for m in masks if m is not None]
     if not present or stats.recomputing():
         return
-    dims = (a3.shape[1], a3.shape[2], b3.shape[2])
     if present[0].device.type != "cpu":
         _defer_live_tiles(spec, dims, masks)
     else:

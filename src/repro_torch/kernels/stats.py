@@ -17,6 +17,12 @@ string, so a test can compare the two packages' count dicts directly:
   registry:hit / registry:miss                    grad-bitmap registry
                                                   lookups
 
+A dispatch whose result autograd will not read (the gradient of an input
+that requires none, as the image's) is counted all the same, as the
+reference's trace counts it before XLA drops it, but it runs nothing: its
+keys are also added to a port-only record, ``elided``, which ``counts``
+leaves out.  So a step's kernel launches are ``counts() - elided()``.
+
 PyTorch runs eagerly, so one forward+backward records exactly one step's
 events.  The lifecycle scopes become ``torch.profiler.record_function``
 ranges under the reference's ``repro:<kind>[:<detail>]:<seq>`` and
@@ -54,6 +60,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 _COUNTS: "collections.Counter[str]" = collections.Counter()
+# The keys of dispatches counted in ``_COUNTS`` but elided (``record_elided``).
+_ELIDED: "collections.Counter[str]" = collections.Counter()
 # Device-resident counters of ``record_on_device``, by (key, device).
 _PENDING: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
@@ -72,6 +80,22 @@ def record(kind: str) -> None:
     if recomputing():
         return
     _COUNTS[_normalize(kind)] += 1
+
+
+def record_elided(kind: str) -> None:
+    """Count ``kind`` as ``record`` does, and again in ``elided``: the
+    event is the reference's, but the port runs nothing for it."""
+    if recomputing():
+        return
+    key = _normalize(kind)
+    _COUNTS[key] += 1
+    _ELIDED[key] += 1
+
+
+def elided() -> Dict[str, int]:
+    """The counted keys whose work was elided (``record_elided``); a subset
+    of ``counts()``, which includes them."""
+    return dict(_ELIDED)
 
 
 def record_on_device(kind: str, flag: torch.Tensor) -> None:
@@ -96,6 +120,7 @@ def _fold() -> None:
 
 def reset() -> None:
     _COUNTS.clear()
+    _ELIDED.clear()
     _PENDING.clear()
     _LIVE.clear()
 
