@@ -16,7 +16,8 @@
 //
 // For its tile (g, i, j) every path computes
 //   out = sum over k blocks with a_mask[g,i,kb] && b_mask[g,kb,j] of A.B,
-// in full float32 FMA (no TF32, no tensor cores), then the epilogue of
+// at float32 accuracy (the standard path on the tensor cores, the
+// group-major paths in float32 FMA; see below), then the epilogue of
 // repro/kernels/masked_matmul.py:_apply_epilogue: out *= mult (sigma-prime)
 // and, over the post-sigma-prime values, bits[g, m/er, n/ec] = any(|out|>0)
 // and no NaN in the cell (the reference's max over the cell carries a NaN,
@@ -35,13 +36,35 @@
 // The caller (kernels/masked_matmul.py) picks a path and a split count from
 // the shape (G, M, K, N) and the mask block alone, never from the masks,
 // the capacity or n_live, so every schedule of one shape sums in one order:
-//   standard   a block owns a 128 x 128 register tile (256 threads, 8 x 8
-//              outputs each) and covers its mask tile with gridDim.y; K
-//              advances in chunks of 16 through shared memory; a dead k
-//              block is skipped before any load; A and B are read through
-//              their strides (patches^T needs no copy) and the shared-memory
-//              fill follows whichever stride is 1.  253 registers: one
-//              block per SM.
+//   standard   a block owns a 128 x 128 tile and covers its mask tile
+//              with gridDim.y.  It serves K3, K4, K6 and K7 (every dense
+//              GEMM of the steps).  Its work is f32 products, which the
+//              card's tensor cores do not take; it does each as three TF32
+//              products (hi.hi + hi.lo + lo.hi, x = hi + lo exactly, hi
+//              rounded to TF32), so it is bound by 495/3 = 165 TFLOP/s of
+//              f32-accurate work (mma.sync reaches ~317 of the 495 TF32
+//              TFLOP/s on an H100) or by the bytes at 3.35 TB/s.  The
+//              design: 8 warps of mma.sync m16n8k8 TF32, 64 x 32 a warp
+//              (32 x 32 where the tile is at most 64 wide, so that every
+//              warp works), products issued over the warp's fragments so
+//              that none waits on the one before it, the next k8 step's
+//              operands read ahead; the products' f32 sums added every 64
+//              k into f32 sums in shared memory past the ring, as the
+//              tensor cores' own adds truncate (a thread's 64 sums kept
+//              out of its registers); K in chunks of 32 that never cross a
+//              mask k block, a dead k block skipped block-wide before any
+//              copy; a ring of 4 stages in dynamic shared memory filled by
+//              cp.async along whichever stride of A and of B is 1 (16-byte
+//              copies where the pointer, the other stride and the block
+//              allow, else 4-byte ones; the ragged edge and k past the
+//              block zero-filled), each stage laid out so that the
+//              fragments' reads hit 32 banks; A and B read through their
+//              strides (patches^T needs no copy).  A k8 step holding a
+//              non-finite value is taken again with an exact split (a
+//              non-finite x is its own hi, a NaN the canonical one, with lo
+//              = 0, and meets the other operand's lo as 0; a subnormal's hi
+//              is the smallest normal), so inf and NaN land where f32 FMA
+//              puts them.  One block per SM.
 //   group rows the degenerate per-group tiles of depthwise FP and dX GEMMs
 //              (K <= 64 / N, N <= 8, one column tile): a block takes 32
 //              groups, one per lane, because the group is the unit stride
@@ -82,11 +105,24 @@
 // are empty and the kernels compile to the default build's code.
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int TM = 128;
 constexpr int TN = 128;
-constexpr int TK = 16;
+constexpr int TK = 32;                        // standard: k a stage
+constexpr int kStages = 4;                    // standard: the cp.async ring
+constexpr int kPitchMN = TM + 4;              // a stage row along m or n
+constexpr int kPitchK = TK + 8;               // a stage row along k
+constexpr int kOperandFloats = TM * kPitchK;  // >= TK * kPitchMN
+constexpr int kStageFloats = 2 * kOperandFloats;
+constexpr int kAccFloats = 64 * 256;          // the f32 sums, 64 a thread
+constexpr int kGemmSmemBytes =
+    (kStages * kStageFloats + kAccFloats) * 4;  // 229,376
+constexpr int kFlushSteps = 8;                // k8 steps between f32 adds
+static_assert(TM == TN && kOperandFloats >= TK * kPitchMN, "the ring");
+static_assert(kGemmSmemBytes <= 232448, "the ring fits an SM");
 constexpr int kThreads = 256;
 constexpr int kLanes = 32;                    // group-major: groups / block
 constexpr int kSubLanes = kThreads / kLanes;  // 8
@@ -251,12 +287,298 @@ __device__ __forceinline__ void emit(const GemmArgs& p, long long o, int g,
   if (p.bits != nullptr) emit_bit(p, g, m, n, v);
 }
 
+// ---------------------------------------------------------------------------
+// The standard path's tensor-core tile
+// ---------------------------------------------------------------------------
+
+// cp.async of 16 or 4 bytes into shared memory; the bytes past `bytes` are
+// zero-filled (bytes = 0 reads nothing and writes zeros).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// d += a . b on the tensor cores: a 16 x 8 (row), b 8 x 8 (col), TF32 in,
+// f32 out.  The tensor cores read the top 19 bits of each 32-bit operand.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo exactly: hi is x rounded to the nearest TF32 (ties away
+// from 0), lo the rest (|lo| <= 2^-11 |x|, of either sign), read by the
+// tensor cores truncated once more (2^-21 of |x|): the errors of the three
+// products carry no sign of their own, so they do not add up along k.  A
+// non-finite x gives a NaN lo, and an x that rounds up past the largest
+// float an infinite one; the caller's check catches both.
+__device__ __forceinline__ void split_fast(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// The split where a k8 step holds a non-finite value (or one that rounds up
+// past the largest float): hi truncated, so that it never overflows.  A
+// non-finite x keeps
+// itself as hi (a NaN as the canonical NaN: the tensor cores would read a
+// NaN whose payload lies in the low 13 bits as inf), lo = 0, and hic = 0,
+// the hi that the other operand's lo meets in the correction products; so
+// inf and NaN reach the sum through hi . hi alone, as through f32 FMA.  A
+// subnormal x takes hi = the smallest normal of its sign, so that inf
+// times it is inf and not inf . 0.
+__device__ __forceinline__ void split_exact(float x, unsigned& hi,
+                                            unsigned& hic, unsigned& lo) {
+  const unsigned u = __float_as_uint(x);
+  const unsigned v = u & 0x7fffffffu;
+  if (v >= 0x7f800000u) {
+    hi = v > 0x7f800000u ? 0x7fc00000u : u;
+    hic = 0u;
+    lo = 0u;
+    return;
+  }
+  hi = (v != 0u && v < 0x00800000u) ? (u & 0x80000000u) | 0x00800000u
+                                    : u & 0xffffe000u;
+  hic = hi;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// One operand's stage fill: a (rows of the m or n side) x (TK) tile, laid
+// out k-major ([TM][kPitchK], k contiguous) when the operand's unit stride
+// is k, else [TK][kPitchMN].  `vec`: every 4-element run along the unit
+// stride starts 16-byte aligned, so it goes as one 16-byte copy.
+struct OperandFill {
+  const float* base;   // element (row 0 of the tile, k 0)
+  long long s_r, s_k;  // strides of a row and of a k in global memory
+  int r_valid;         // rows of the output tile
+  int r_fill;          // rows the live warps read (r_valid rounded up)
+  bool kmaj;
+  bool vec;
+};
+
+__device__ __forceinline__ OperandFill operand_fill(
+    const float* base, long long s_r, long long s_k, int r_valid, int r_warp,
+    bool kmaj, int bk) {
+  OperandFill f;
+  f.base = base;
+  f.s_r = s_r;
+  f.s_k = s_k;
+  f.r_valid = r_valid;
+  f.r_fill = min(TM, (r_valid + r_warp - 1) / r_warp * r_warp);
+  f.kmaj = kmaj;
+  const bool aligned = ((unsigned long long)base & 15u) == 0;
+  f.vec = kmaj ? aligned && s_k == 1 && (s_r & 3) == 0 && (bk & 3) == 0
+               : aligned && s_r == 1 && (s_k & 3) == 0;
+  return f;
+}
+
+// Issue the copies of k [k0, k0 + kfill) of one operand into `s`, a fixed
+// set of copies a thread: rows past r_valid (up to r_fill) and k past klen
+// arrive as zeros.
+__device__ __forceinline__ void fill_operand(float* s, const OperandFill& f,
+                                             int k0, int klen, int kfill,
+                                             int tid) {
+  const float* src0 = f.base + (long long)k0 * f.s_k;
+  if (f.kmaj && f.vec) {
+#pragma unroll
+    for (int q = 0; q < TM * TK / 4 / kThreads; ++q) {
+      const int v = tid + q * kThreads;
+      const int r = v / (TK / 4);
+      const int k = v % (TK / 4) * 4;
+      if (r >= f.r_fill || k >= kfill) continue;
+      const int bytes = r < f.r_valid ? 4 * max(0, min(4, klen - k)) : 0;
+      cp_async16(s + r * kPitchK + k,
+                 bytes ? src0 + (long long)r * f.s_r + k : f.base, bytes);
+    }
+  } else if (f.kmaj) {
+#pragma unroll
+    for (int q = 0; q < TM * TK / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int r = e / TK;
+      const int k = e % TK;
+      if (r >= f.r_fill || k >= kfill) continue;
+      const bool ok = r < f.r_valid && k < klen;
+      cp_async4(s + r * kPitchK + k,
+                ok ? src0 + (long long)r * f.s_r + (long long)k * f.s_k
+                   : f.base,
+                ok ? 4 : 0);
+    }
+  } else if (f.vec) {
+#pragma unroll
+    for (int q = 0; q < TM * TK / 4 / kThreads; ++q) {
+      const int v = tid + q * kThreads;
+      const int k = v / (TM / 4);
+      const int r = v % (TM / 4) * 4;
+      if (r >= f.r_fill || k >= kfill) continue;
+      const int bytes = k < klen ? 4 * max(0, min(4, f.r_valid - r)) : 0;
+      cp_async16(s + k * kPitchMN + r,
+                 bytes ? src0 + (long long)k * f.s_k + r : f.base, bytes);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < TM * TK / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int k = e / TM;
+      const int r = e % TM;
+      if (r >= f.r_fill || k >= kfill) continue;
+      const bool ok = r < f.r_valid && k < klen;
+      cp_async4(s + k * kPitchMN + r,
+                ok ? src0 + (long long)r * f.s_r + (long long)k * f.s_k
+                   : f.base,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// Offset in a stage of an operand's element (row r of the m or n side, k):
+// k-major ([TM][kPitchK]) or row-major along m or n ([TK][kPitchMN]).  The
+// m16n8k8 fragments' k slots t and t + 4 of thread t take k = 2t and 2t + 1
+// (any order of k serves, if A and B share it): adjacent along k, and with
+// these pitches every fragment read of a warp falls in 32 banks.
+template <bool kKMaj>
+__device__ __forceinline__ int at(int r, int k) {
+  return kKMaj ? r * kPitchK + k : k * kPitchMN + r;
+}
+
+// The thread's two k slots (k = 2t, 2t + 1 from `s`) of row r: one 8-byte
+// read where k is contiguous.
+template <bool kKMaj>
+__device__ __forceinline__ float2 pair_at(const float* s, int r) {
+  if (kKMaj) return *reinterpret_cast<const float2*>(s + r * kPitchK);
+  return make_float2(s[r], s[kPitchMN + r]);
+}
+
+// The k8 steps of one stage for one warp's (16 kMI) x 32: kMI m16 x 4 n8
+// fragments, three products each (lo.hi, hi.lo, hi.hi), issued product by
+// product over the fragments so that no product waits on the one before
+// it.  `as`/`bs` point at the thread's first fragment element.  A step
+// holding a non-finite value (a NaN lo) is taken again, fragment row by
+// fragment row, with split_exact, from the stage.
+template <bool kAK, bool kBK, int kMI>
+__device__ __forceinline__ void load_step(const float* as, const float* bs,
+                                          float2 (&a)[4][2], float2 (&b)[4]) {
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) b[ni] = pair_at<kBK>(bs, 8 * ni);
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) a[mi][h] = pair_at<kAK>(as, 16 * mi + 8 * h);
+}
+
+template <bool kAK, bool kBK, int kMI>
+__device__ __forceinline__ void stage_mma(const float* as, const float* bs,
+                                          int nsteps,
+                                          float (&part)[4][4][4]) {
+  float2 na[4][2], nb[4];   // the next step's operands, read ahead
+  load_step<kAK, kBK, kMI>(as, bs, na, nb);
+#pragma unroll 1
+  for (int s = 0; s < nsteps; ++s, as += at<kAK>(0, 8), bs += at<kBK>(0, 8)) {
+    float2 ca[4][2], cb[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      cb[f] = nb[f];
+      ca[f][0] = na[f][0];
+      ca[f][1] = na[f][1];
+    }
+    if (s + 1 < nsteps)
+      load_step<kAK, kBK, kMI>(as + at<kAK>(0, 8), bs + at<kBK>(0, 8), na,
+                               nb);
+    unsigned ah[4][4], al[4][4], bh[4][2], bl[4][2];
+    float chk[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      split_fast(cb[ni].x, bh[ni][0], bl[ni][0]);
+      split_fast(cb[ni].y, bh[ni][1], bl[ni][1]);
+      chk[ni] += __uint_as_float(bl[ni][0]) + __uint_as_float(bl[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        split_fast(ca[mi][h].x, ah[mi][h], al[mi][h]);
+        split_fast(ca[mi][h].y, ah[mi][h + 2], al[mi][h + 2]);
+        chk[mi] += __uint_as_float(al[mi][h]) +
+                   __uint_as_float(al[mi][h + 2]);
+      }
+    const float bad = (chk[0] + chk[1]) + (chk[2] + chk[3]);
+    if (!__any_sync(0xffffffffu, !(fabsf(bad) <= 3.0e38f))) {
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_tf32(part[mi][ni], al[mi], bh[ni][0], bh[ni][1]);
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_tf32(part[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_tf32(part[mi][ni], ah[mi], bh[ni][0], bh[ni][1]);
+      continue;
+    }
+    unsigned yh[4][2], yc[4][2], yl[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      split_exact(cb[ni].x, yh[ni][0], yc[ni][0], yl[ni][0]);
+      split_exact(cb[ni].y, yh[ni][1], yc[ni][1], yl[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) {
+      unsigned xh[4], xc[4], xl[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        split_exact(ca[mi][h].x, xh[h], xc[h], xl[h]);
+        split_exact(ca[mi][h].y, xh[h + 2], xc[h + 2], xl[h + 2]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma_tf32(part[mi][ni], xl, yc[ni][0], yc[ni][1]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma_tf32(part[mi][ni], xc, yl[ni][0], yl[ni][1]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma_tf32(part[mi][ni], xh, yh[ni][0], yh[ni][1]);
+    }
+  }
+}
+
 // The standard path.  kOutCompact selects the compact_out store and kSplit
 // the raw partial store at compile time: as a runtime branch in the store
 // loop, compact_out cut the grouped modes to 176 registers and made them
-// ~19% slower (VGG16 step on an H100: 281 against 237 ms of GEMMs).
+// ~19% slower (a VGG16 step on an H100, with the FMA tile this replaced).
+//
+// 8 warps, 2 (m) x 4 (n) over the 128 x 128 tile, 64 x 32 a warp
+// (stage_mma); where the tile is at most 64 wide, 4 (m) x 2 (n), 32 x 32 a
+// warp, so that all 8 warps work.  Each fragment's products go into its
+// `part` registers, added into the f32 `acc` in shared memory every
+// kFlushSteps k8 steps (the tensor cores' own adds truncate).  A warp
+// wholly past the tile's edge computes nothing; the live warps' rows past
+// the edge are zero-filled.
 template <bool kOutCompact, bool kSplit>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 masked_gemm_kernel(const GemmArgs p) {
   int g, i, j;
   if (!tile_of(p, blockIdx.x, g, i, j)) return;
@@ -270,111 +592,225 @@ masked_gemm_kernel(const GemmArgs p) {
   int kb_lo = 0, kb_hi = p.Kb;
   if (kSplit) split_range(p, blockIdx.z, kb_lo, kb_hi);
 
-  __shared__ float As[TK][TM + 1];
-  __shared__ float Bs[TK][TN + 1];
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;      // the fragments' groupID
+  const int tq = lane & 3;       // ... and threadID_in_group
+  const bool narrow = n_end - n0 <= 64;
+  const int wm = narrow ? warp & 3 : warp & 1;   // warps of one n column
+  const int wn = narrow ? warp >> 2 : warp >> 1; // on different schedulers
+  const int rows = narrow ? 32 : 64;             // m rows a warp
 
-  const float* Ag = p.A + (long long)g * p.sAg;
-  const float* Bg = p.B + (long long)g * p.sBg;
+  const OperandFill fa = operand_fill(
+      p.A + (long long)g * p.sAg + (long long)m0 * p.sAm, p.sAm, p.sAk,
+      m_end - m0, rows, p.a_kcontig != 0, p.bk);
+  const OperandFill fb = operand_fill(
+      p.B + (long long)g * p.sBg + (long long)n0 * p.sBn, p.sBn, p.sBk,
+      n_end - n0, 32, p.b_ncontig == 0, p.bk);
+  const bool warp_live = wm * rows < fa.r_valid && wn * 32 < fb.r_valid;
+  const int layout = (narrow ? 4 : 0) | (fa.kmaj ? 2 : 0) | (fb.kmaj ? 1 : 0);
+  const int a_row = wm * rows + gq;
+  const int b_row = wn * 32 + gq;
+
+  // The f32 sums wait in shared memory past the ring, 64 a thread, slot
+  // (mi, ni, r) at [((mi * 4 + ni) * 4 + r) * 256 + tid].
+  float* acc = smem + kStages * kStageFloats + tid;
+  float part[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[((mi * 4 + ni) * 4 + r) * kThreads] = 0.f;
+        part[mi][ni][r] = 0.f;
+      }
+
+  // The producer walks the live k chunks: a chunk is up to TK of one live
+  // k block (uniform across the block, so are the waits and barriers).
   const int* am = p.a_mask ? p.a_mask + ((long long)g * p.Mb + i) * p.Kb
                            : nullptr;
   const int* bmk = p.b_mask ? p.b_mask + (long long)g * p.Kb * p.Nb + j
                             : nullptr;
-  for (int kb = kb_lo; kb < kb_hi; ++kb) {
-    // Uniform across the block: the whole block skips a dead k block.
-    if (am != nullptr && am[kb] == 0) continue;
-    if (bmk != nullptr && bmk[(long long)kb * p.Nb] == 0) continue;
-    const int k_lo = kb * p.bk;
-    const int k_hi = min(k_lo + p.bk, p.K);
-    for (int k0 = k_lo; k0 < k_hi; k0 += TK) {
-#pragma unroll
-      for (int q = 0; q < TM * TK / kThreads; ++q) {
-        const int e = tid + q * kThreads;
-        int mm, kk;
-        if (p.a_kcontig) {
-          kk = e % TK;
-          mm = e / TK;
-        } else {
-          mm = e % TM;
-          kk = e / TM;
-        }
-        const int m = m0 + mm;
-        const int k = k0 + kk;
-        As[kk][mm] = (m < m_end && k < k_hi)
-                         ? Ag[(long long)m * p.sAm + (long long)k * p.sAk]
-                         : 0.f;
+  auto live_from = [&](int kb) {
+    while (kb < kb_hi && ((am != nullptr && am[kb] == 0) ||
+                          (bmk != nullptr && bmk[(long long)kb * p.Nb] == 0)))
+      ++kb;
+    return kb;
+  };
+  int pkb = live_from(kb_lo);
+  int pk0 = pkb * p.bk;
+  int pkhi = min(pk0 + p.bk, p.K);
+  unsigned lens = 0;     // the chunk length of each stage, 8 bits a stage
+  int issued = 0;
+  auto issue = [&]() {
+    if (pkb < kb_hi) {
+      const int klen = min(TK, pkhi - pk0);
+      const int kfill = (klen + 7) & ~7;
+      const int st = issued % kStages;
+      float* s = smem + st * kStageFloats;
+      fill_operand(s, fa, pk0, klen, kfill, tid);
+      fill_operand(s + kOperandFloats, fb, pk0, klen, kfill, tid);
+      lens = (lens & ~(0xffu << (8 * st))) | ((unsigned)klen << (8 * st));
+      ++issued;
+      pk0 += TK;
+      if (pk0 >= pkhi) {
+        pkb = live_from(pkb + 1);
+        pk0 = pkb * p.bk;
+        pkhi = min(pk0 + p.bk, p.K);
       }
-#pragma unroll
-      for (int q = 0; q < TN * TK / kThreads; ++q) {
-        const int e = tid + q * kThreads;
-        int nn, kk;
-        if (p.b_ncontig) {
-          nn = e % TN;
-          kk = e / TN;
-        } else {
-          kk = e % TK;
-          nn = e / TK;
-        }
-        const int n = n0 + nn;
-        const int k = k0 + kk;
-        Bs[kk][nn] = (n < n_end && k < k_hi)
-                         ? Bg[(long long)k * p.sBk + (long long)n * p.sBn]
-                         : 0.f;
+    }
+    cp_async_commit();
+  };
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) issue();
+
+  int since_flush = 0;
+  for (int c = 0; c < issued; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    // The stage of chunk c - 1: every warp is past it.
+    issue();
+    const int st = c % kStages;
+    const int nsteps = ((int)((lens >> (8 * st)) & 0xffu) + 7) >> 3;
+    const float* sa = smem + st * kStageFloats;
+    const float* sb = sa + kOperandFloats;
+    if (warp_live) {
+      const float* a0 = sa + (fa.kmaj ? at<true>(a_row, 2 * tq)
+                                      : at<false>(a_row, 2 * tq));
+      const float* b0 = sb + (fb.kmaj ? at<true>(b_row, 2 * tq)
+                                      : at<false>(b_row, 2 * tq));
+      switch (layout) {
+        case 0: stage_mma<false, false, 4>(a0, b0, nsteps, part); break;
+        case 1: stage_mma<false, true, 4>(a0, b0, nsteps, part); break;
+        case 2: stage_mma<true, false, 4>(a0, b0, nsteps, part); break;
+        case 3: stage_mma<true, true, 4>(a0, b0, nsteps, part); break;
+        case 4: stage_mma<false, false, 2>(a0, b0, nsteps, part); break;
+        case 5: stage_mma<false, true, 2>(a0, b0, nsteps, part); break;
+        case 6: stage_mma<true, false, 2>(a0, b0, nsteps, part); break;
+        default: stage_mma<true, true, 2>(a0, b0, nsteps, part);
       }
-      __syncthreads();
+    }
+    since_flush += nsteps;
+    if (warp_live && (since_flush >= kFlushSteps || c + 1 == issued)) {
+      since_flush = 0;
 #pragma unroll
-      for (int kk = 0; kk < TK; ++kk) {
-        float a[8], b[8];
+      for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int r = 0; r < 8; ++r) a[r] = As[kk][ty + 16 * r];
+        for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) b[c] = Bs[kk][tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-      }
-      __syncthreads();
+          for (int r = 0; r < 4; ++r) {
+            acc[((mi * 4 + ni) * 4 + r) * kThreads] += part[mi][ni][r];
+            part[mi][ni][r] = 0.f;
+          }
     }
   }
+  if (!warp_live) return;
 
+  // The epilogue from the fragments: thread (gq, tq) holds (m, n), (m, n +
+  // 1) and (m + 8, n), (m + 8, n + 1) of each fragment, n = 2 tq; a pair
+  // goes as one float2 where its addresses allow.
   float* ws = kSplit ? p.ws + (long long)blockIdx.z * p.G * p.M * p.N
                      : nullptr;
+  const bool even = (p.N & 1) == 0;
+  const bool pairs =
+      kSplit ? even && ((unsigned long long)ws & 7u) == 0
+             : (kOutCompact ? (p.bn & 1) == 0 : even) &&
+                   ((unsigned long long)p.out & 7u) == 0 &&
+                   (p.mult == nullptr ||
+                    (even && ((unsigned long long)p.mult & 7u) == 0));
+  int bit_col[4][2];     // the bitmap columns of the thread's outputs
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int m = m0 + ty + 16 * r;
-    if (m >= m_end) continue;
+  for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int n = n0 + tx + 16 * c;
-      if (n >= n_end) continue;
-      const long long o = ((long long)g * p.M + m) * p.N + n;
-      float v = acc[r][c];
-      if (kSplit) {
-        ws[o] = v;
-        shadow_ws_write(&ws[o]);
-        continue;
-      }
-      if (p.mult != nullptr) v *= p.mult[o];
-      if (kOutCompact) {
-        float* d = &p.out[((long long)blockIdx.x * p.bm + (m - i * p.bm)) *
-                              p.bn + (n - j * p.bn)];
-        *d = v;
+    for (int e = 0; e < 2; ++e)
+      bit_col[ni][e] = (n0 + wn * 32 + 8 * ni + 2 * tq + e) / p.ec;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    if (narrow && mi >= 2) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + a_row + 16 * mi + 8 * h;
+      if (m >= m_end) continue;
+      const long long bit_row = ((long long)g * p.Mc + m / p.er) * p.Nc;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = n0 + wn * 32 + 8 * ni + 2 * tq;
+        if (n >= n_end) continue;
+        const bool two = n + 1 < n_end;
+        const long long o = ((long long)g * p.M + m) * p.N + n;
+        float v[2] = {acc[((mi * 4 + ni) * 4 + 2 * h) * kThreads],
+                      acc[((mi * 4 + ni) * 4 + 2 * h + 1) * kThreads]};
+        if (kSplit) {
+          if (two && pairs) {
+            *reinterpret_cast<float2*>(&ws[o]) = make_float2(v[0], v[1]);
+          } else {
+            ws[o] = v[0];
+            if (two) ws[o + 1] = v[1];
+          }
+          shadow_ws_write(&ws[o]);
+          if (two) shadow_ws_write(&ws[o + 1]);
+          continue;
+        }
+        if (p.mult != nullptr) {
+          if (two && pairs) {
+            const float2 x = *reinterpret_cast<const float2*>(&p.mult[o]);
+            v[0] *= x.x;
+            v[1] *= x.y;
+          } else {
+            v[0] *= p.mult[o];
+            if (two) v[1] *= p.mult[o + 1];
+          }
+        }
+        float* d =
+            kOutCompact
+                ? &p.out[((long long)blockIdx.x * p.bm + (m - i * p.bm)) *
+                             p.bn + (n - j * p.bn)]
+                : &p.out[o];
+        if (two && pairs) {
+          *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
+        } else {
+          d[0] = v[0];
+          if (two) d[1] = v[1];
+        }
         shadow_out(d);
-      } else {
-        p.out[o] = v;
-        shadow_out(&p.out[o]);
+        if (two) shadow_out(d + 1);
+        if (p.bits != nullptr) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (e == 1 && !two) break;
+            if (fabsf(v[e]) > 0.f)
+              p.bits[bit_row + bit_col[ni][e]] = 1;
+            else if (v[e] != v[e])
+              g_emit_nan = 1;
+          }
+        }
       }
-      if (p.bits != nullptr) emit_bit(p, g, m, n, v);
     }
   }
+}
+
+// One standard-path launch.  The ring is dynamic shared memory above the
+// 48 KB default: the limit is raised once per device for each instantiation.
+template <bool kOutCompact, bool kSplit>
+int launch_standard(const GemmArgs& p, dim3 grid, cudaStream_t st) {
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if ((raised.load() & bit) == 0) {
+    err = cudaFuncSetAttribute(masked_gemm_kernel<kOutCompact, kSplit>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kGemmSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    raised.fetch_or(bit);
+  }
+  masked_gemm_kernel<kOutCompact, kSplit>
+      <<<grid, kThreads, kGemmSmemBytes, st>>>(p);
+  return 0;
 }
 
 // Group-major rows: block (gc, mc) covers groups [32 gc, 32 gc + 32) and
@@ -914,13 +1350,11 @@ extern "C" int masked_gemm_launch(
     if (tiles > 0x7fffffffLL || nsub > 65535)
       return (int)cudaErrorInvalidConfiguration;
     const dim3 grid((unsigned)tiles, (unsigned)nsub, (unsigned)splits);
-    if (splits > 1) {
-      masked_gemm_kernel<false, true><<<grid, kThreads, 0, st>>>(p);
-    } else if (mode == kCompactOut) {
-      masked_gemm_kernel<true, false><<<grid, kThreads, 0, st>>>(p);
-    } else {
-      masked_gemm_kernel<false, false><<<grid, kThreads, 0, st>>>(p);
-    }
+    const int err = splits > 1 ? launch_standard<false, true>(p, grid, st)
+                    : mode == kCompactOut
+                        ? launch_standard<true, false>(p, grid, st)
+                        : launch_standard<false, false>(p, grid, st);
+    if (err != 0) return err;
   }
   const int err = (int)cudaGetLastError();
   // A split launch emits nothing: its reduce does, and the fix-up follows it.

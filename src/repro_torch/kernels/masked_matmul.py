@@ -13,17 +13,22 @@ slots s < n_live) and predicated (every out_mask tile).  Tiles and bits go
 straight to their (g, i, j) place in a zero-filled output, operands are
 read through their strides (so transposed operands need no copy), and
 queue overflow is decided on the device: the compact launch exits when
-n_live > capacity, the predicated fallback when it is not.  Full f32 FMA,
-no TF32 or tensor cores; the kernels are bound by operations on the dense
-GEMMs and by bytes on the degenerate depthwise ones.
+n_live > capacity, the predicated fallback when it is not.  Every path
+sums at f32 accuracy: the standard path on the tensor cores, each f32
+product as three TF32 products (x = hi + lo exactly, hi rounded to TF32;
+hi·hi + hi·lo + lo·hi), with non-finite values landing where f32 FMA puts
+them; the group-major paths in f32 FMA.  The kernels are bound by
+operations on the dense GEMMs (at 495/3 TFLOP/s of f32-accurate work) and
+by bytes on the degenerate depthwise ones.
 
 The wrapper picks a path and a split count from the shape and the mask
 block alone (``gemm_path``, ``split_plan``; never from the masks, the
 capacity or the live count, so every schedule of one shape sums in one
 order):
 
-  * standard: a block owns a 128×128 register tile and covers its mask
-    tile with it;
+  * standard: a block owns a 128×128 tile and covers its mask tile with
+    it: 8 warps of ``mma.sync`` m16n8k8 TF32 fed by a 4-stage ``cp.async``
+    ring in shared memory (``csrc/masked_matmul.cu`` says how);
   * group rows, for the degenerate per-group FP and dX tiles of depthwise
     convs (N ≤ 8 columns in one tile, K·N ≤ 64): 32 groups per block, one
     per lane, since the group is the unit stride of the regrouped patches;
@@ -302,8 +307,9 @@ ROWS_MAX_KN = 64               # group rows: K·N of B held in shared memory
 K_MAX_MN = 32                  # group k: accumulators per thread
 
 STANDARD, GROUP_ROWS, GROUP_K = 0, 1, 2
-# Blocks of each split path that one SM holds at once (registers: 253 per
-# thread on the standard path, 64 on group k; 256 threads a block).
+# Blocks of each split path that one SM holds at once (the standard path:
+# 229,376 bytes of shared memory a block; group k: 64 registers a thread;
+# 256 threads a block).
 RESIDENT = {STANDARD: 1, GROUP_K: 4}
 
 
@@ -320,7 +326,7 @@ def gemm_path(g: int, m: int, k: int, n: int,
     ``GROUP_ROWS`` for degenerate per-group FP/dX tiles (a few columns, one
     column tile, K·N ≤ 64), ``GROUP_K`` for degenerate per-group weight
     gradients (one M × N tile per group with M·N⁺ ≤ 32, N⁺ the next power
-    of two), else ``STANDARD`` (the 128×128 register tile).  G = 1 always
+    of two), else ``STANDARD`` (the 128×128 tensor-core tile).  G = 1 always
     takes ``STANDARD``, so K6/K7 and ``sparse_gemm(G=1)`` share one path."""
     mb, _, nb = grid_shape((m, k, n), block)
     if g < 2 or n > 8 or nb != 1:

@@ -826,7 +826,7 @@ def test_halved_block_gemm_matches_plain(dev):
 def test_chaos_matrix_on_card(dev):
     from repro_torch.runtime import faults
     rows = faults.run_matrix(device="cuda")
-    assert [r.ok for r in rows] == [True] * 7, [r.detail for r in rows]
+    assert [r.ok for r in rows] == [True] * 8, [r.detail for r in rows]
 
 
 def test_kernel_sweep_on_card(dev):
@@ -856,3 +856,120 @@ def test_kernel_plants_caught_on_card(dev, plant, code):
 def test_audit_workloads_clean_on_card(dev):
     from repro_torch.analysis import trace_audit
     assert trace_audit.audit_workloads(device=dev) == []
+
+
+# The standard tile's edges (csrc/masked_matmul.cu, masked_gemm_kernel):
+# (G, M, K, N, block, A layout, B layout, offset, plant).  Layout "mk" is
+# A (G, M, K) row-major, "km" A a transposed view of (G, K, M) (unit stride
+# on m, as patches^T in a WG GEMM); "kn" B row-major, "nk" a transposed
+# view of (G, N, K) (unit stride on k).  An offset of 1 puts both operands
+# 4 bytes off 16-byte alignment.  Plants: "dead" clears every k block of
+# one live output tile; "inf" puts ±inf in a live block beside
+# TF32-exact partners (1.5, 0.0), a subnormal and finite values, and a NaN
+# whose payload lies in its low 13 bits.
+TILE_CASES = {
+    "K=1": (1, 130, 1, 70, (128, 128, 128), "mk", "kn", 0, None),
+    "K=7": (2, 150, 7, 96, (64, 8, 32), "mk", "kn", 0, None),
+    "K=9": (1, 140, 9, 40, (128, 8, 128), "km", "kn", 0, None),
+    "K=33": (1, 96, 33, 72, (32, 16, 64), "mk", "nk", 0, None),
+    "M and N ragged": (2, 333, 100, 250, (256, 32, 256), "mk", "kn", 0,
+                       None),
+    "A unit stride on m": (2, 200, 130, 96, (128, 32, 128), "km", "kn", 0,
+                           None),
+    "B unit stride on k": (1, 200, 130, 96, (128, 32, 128), "mk", "nk", 0,
+                           None),
+    "4 bytes off alignment": (1, 190, 130, 100, (128, 32, 128), "mk", "kn",
+                              1, None),
+    "4 bytes off, both transposed": (1, 190, 130, 100, (128, 32, 128), "km",
+                                     "nk", 1, None),
+    "a whole tile's k blocks dead": (1, 256, 96, 128, (64, 16, 64), "mk",
+                                     "kn", 0, "dead"),
+    "inf beside 1.5, 0, a subnormal": (1, 160, 40, 48, (64, 16, 16), "mk",
+                                       "kn", 0, "inf"),
+}
+KERNEL_RTOL = 1e-4       # max|kernel - plain| <= KERNEL_RTOL * max|plain|
+
+
+def _operand(rng, dev, outer, inner, transposed, offset):
+    """A (G, outer, inner) operand whose storage starts ``offset`` floats
+    into its buffer; ``transposed``: a view of (G, inner, outer)."""
+    g = outer[0]
+    shape = (g, inner, outer[1]) if transposed else (g, outer[1], inner)
+    buf = torch.tensor(rng.standard_normal(int(np.prod(shape)) + offset),
+                       dtype=torch.float32, device=dev)
+    x = buf[offset:].view(shape)
+    return x.transpose(1, 2) if transposed else x
+
+
+def _tile_case(dev, case):
+    g, m, k, n, block, a_lay, b_lay, offset, plant = TILE_CASES[case]
+    rng = np.random.default_rng(7)
+    a = _operand(rng, dev, (g, m), k, a_lay == "km", offset)
+    # B (G, K, N) with unit stride on n ("kn") or on k ("nk")
+    b = _operand(rng, dev, (g, k), n, False, offset) if b_lay == "kn" \
+        else _operand(rng, dev, (g, n), k, False, offset).transpose(1, 2)
+    ni, nk, nj = shapes.grid_shape((m, k, n), block)
+    om, am, bmk = (torch.tensor(rng.random(s) < 0.6, device=dev)
+                   .to(torch.int32)
+                   for s in ((g, ni, nj), (g, ni, nk), (g, nk, nj)))
+    mult = torch.tensor(rng.random((g, m, n)) < 0.7, device=dev).float()
+    if plant == "dead":
+        om[0, 1, :] = 1
+        am[0, 1, :] = 0
+    if plant == "inf":
+        kk = 5
+        kb = kk // block[1]
+        om[0] = 1
+        am[0, :, kb] = 1
+        bmk[0, kb, :] = 1
+        a[0, 3, kk] = float("inf")
+        a[0, 20, kk] = float("-inf")
+        a[0, 70, kk + 1] = torch.tensor([0x7f800001], dtype=torch.int32) \
+            .view(torch.float32)[0]
+        b[0, kk, 0], b[0, kk, 1], b[0, kk, 2] = 1.5, 0.0, 1e-40
+        mult[0, 3, :3] = 1.0
+    return a, b, om, am, bmk, mult
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_standard_tile_edges_match_plain(dev, case):
+    """Predicated, compact and its overflow fallback against the plain
+    version on the same inputs: within KERNEL_RTOL of max|plain| on the
+    finite places, NaN and inf in the same places, equal bits, equal
+    zeros, and bit-equal to each other."""
+    a, b, om, am, bmk, mult = _tile_case(dev, case)
+    g, m, k = a.shape
+    n = b.shape[2]
+    block = TILE_CASES[case][4]
+    assert mm.gemm_path(g, m, k, n, block) == mm.STANDARD
+    emit = (2, 4)
+    kw = dict(block=block, epilogue_mult=mult, emit_gran=emit)
+    want, want_bits = mm.grouped_masked_matmul_plain(
+        a, b, om, am, bmk, out=torch.zeros(g, m, n, device=dev),
+        bits=torch.zeros(g, -(-m // 2), -(-n // 4), dtype=torch.int32,
+                         device=dev), **kw)
+    flat = om.reshape(-1, om.shape[2]).contiguous()
+    results = [mm.grouped_masked_matmul_kernel(a, b, om, am, bmk, **kw)]
+    for cap in (flat.numel(), int(flat.sum()) // 2):
+        fi, jj, nl = qb.build_queue_kernel(flat, capacity=cap)
+        out, bits = mm.grouped_compact_masked_matmul_kernel(
+            a, b, fi, jj, nl, am, bmk, **kw)
+        if cap < flat.numel():
+            out, bits = mm.grouped_masked_matmul_kernel(
+                a, b, om, am, bmk, out=out, bits=bits, n_live=nl,
+                capacity=cap, **kw)
+        results.append((out, bits))
+    torch.cuda.synchronize()
+    fin = want.isfinite()
+    scale = float(want[fin].abs().max())
+    if TILE_CASES[case][8] == "inf":
+        assert int(want.isinf().sum()) > 0 and int(want.isnan().sum()) > 0
+    for got, got_bits in results:
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.isinf(), want.isinf())
+        assert torch.equal(got.isinf() & (got > 0), want.isinf() & (want > 0))
+        assert float((got[fin] - want[fin]).abs().max()) <= \
+            KERNEL_RTOL * scale
+        assert torch.equal(got == 0, want == 0)
+        assert torch.equal(got_bits, want_bits)
+        assert _same(got, results[0][0])
